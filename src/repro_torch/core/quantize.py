@@ -1,0 +1,112 @@
+"""Hypercube quantizer: points -> grid cells -> packed 64-bit keys.
+
+The paper (§III-1) encloses the data in a D-dimensional hypercube with M
+linear bins per axis and concatenates the quantized coordinates into one
+key.  Each coordinate gets ceil(log2(M)) bits of a 64-bit key carried as
+two uint32 limbs (see ``u64``), so D * ceil(log2(M)) <= 64.  Keys are bit
+for bit the reference's (``repro.core.quantize``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import u64
+
+
+@dataclasses.dataclass(frozen=True)
+class GridSpec:
+    """A fitted quantization grid (corner coords stored as tuples, so the
+    spec is hashable and device-free)."""
+    dims: int
+    bins: int                      # M, linear bins per axis
+    lo: Tuple[float, ...]          # (D,) lower corner
+    hi: Tuple[float, ...]          # (D,) upper corner
+    bits_per_dim: int = 0
+
+    def __post_init__(self):
+        object.__setattr__(self, "lo",
+                           tuple(float(v) for v in np.asarray(self.lo).ravel()))
+        object.__setattr__(self, "hi",
+                           tuple(float(v) for v in np.asarray(self.hi).ravel()))
+        bits = max(1, math.ceil(math.log2(self.bins)))
+        object.__setattr__(self, "bits_per_dim", bits)
+        if self.dims * bits > 64:
+            raise ValueError(
+                f"cannot pack D={self.dims} dims x {bits} bits into 64-bit keys; "
+                f"reduce bins (M={self.bins}) or dims (paper regime is D<20)")
+
+    @property
+    def lo_arr(self) -> np.ndarray:
+        return np.asarray(self.lo, np.float32)
+
+    @property
+    def hi_arr(self) -> np.ndarray:
+        return np.asarray(self.hi, np.float32)
+
+    @property
+    def cell_size(self) -> np.ndarray:
+        return (self.hi_arr - self.lo_arr) / self.bins
+
+
+def fit_grid(points: torch.Tensor, bins: int,
+             lo: Optional[np.ndarray] = None,
+             hi: Optional[np.ndarray] = None,
+             pad: float = 1e-3) -> GridSpec:
+    """Fit the enclosing hypercube (one min/max pass on the points'
+    device).  ``lo``/``hi`` may be supplied, and then no data pass is made."""
+    d = int(points.shape[-1])
+    flat = points.reshape(-1, d)
+    if lo is None:
+        lo = flat.amin(0).cpu().numpy()
+    if hi is None:
+        hi = flat.amax(0).cpu().numpy()
+    lo = np.asarray(lo, np.float32)
+    hi = np.asarray(hi, np.float32)
+    span = np.maximum(hi - lo, 1e-12)
+    return GridSpec(dims=d, bins=int(bins), lo=lo - pad * span, hi=hi + pad * span)
+
+
+def quantize(grid: GridSpec, points: torch.Tensor) -> torch.Tensor:
+    """(..., D) float32 points -> (..., D) int64 bin coordinates in [0, M)."""
+    lo = torch.as_tensor(grid.lo_arr, device=points.device)
+    inv = torch.as_tensor(
+        np.asarray(grid.bins / (grid.hi_arr - grid.lo_arr), np.float32),
+        device=points.device)
+    idx = torch.floor((points - lo) * inv).clamp_(0, grid.bins - 1)
+    return idx.to(torch.int64)
+
+
+def pack(grid: GridSpec, coords: torch.Tensor) -> u64.U64:
+    """(..., D) coords -> packed 64-bit keys (hi, lo) of shape (...)."""
+    key = (torch.zeros(coords.shape[:-1], dtype=torch.int64,
+                       device=coords.device),) * 2
+    for i in range(grid.dims):
+        key = u64.add_u32(u64.shl(key, grid.bits_per_dim), coords[..., i])
+    return key
+
+
+def unpack(grid: GridSpec, key: u64.U64) -> torch.Tensor:
+    """Packed keys (...) -> (..., D) int64 coords (inverse of `pack`)."""
+    mask = (1 << grid.bits_per_dim) - 1
+    outs = []
+    k = key
+    for _ in range(grid.dims):
+        outs.append(k[1] & mask)
+        k = u64.shr(k, grid.bits_per_dim)
+    return torch.stack(outs[::-1], dim=-1)
+
+
+def cell_center(grid: GridSpec, coords: torch.Tensor) -> torch.Tensor:
+    """(..., D) coords -> float32 cell centers in data space."""
+    cs = torch.as_tensor(grid.cell_size, device=coords.device)
+    lo = torch.as_tensor(grid.lo_arr, device=coords.device)
+    return lo + (coords.to(torch.float32) + 0.5) * cs
+
+
+def points_to_keys(grid: GridSpec, points: torch.Tensor) -> u64.U64:
+    return pack(grid, quantize(grid, points))

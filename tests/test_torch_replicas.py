@@ -1,0 +1,85 @@
+"""Parity of the port's representatives (repro_torch.core.replicas) with
+the JAX reference: live mask, weights and ids identical; points within
+1 ulp given the same jitter (the cell-center sum may be fused into an FMA
+on one side and not the other)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import _torch_parity as par
+from repro.core import quantize as ref_quantize
+from repro.core import replicas as ref_replicas
+from repro.core.heavy_hitters import HeavyHitters as RefHH
+from repro_torch.core import quantize, replicas, u64
+from repro_torch.core.heavy_hitters import HeavyHitters
+
+
+def _hh(seed, k=200, dims=4, bins=8):
+    rng = np.random.default_rng(seed)
+    grid = ref_quantize.GridSpec(dims=dims, bins=bins,
+                                 lo=rng.uniform(-1, 0, dims),
+                                 hi=rng.uniform(1, 2, dims))
+    coords = rng.integers(0, bins, size=(k, dims)).astype(np.uint32)
+    hi, lo = (np.asarray(a) for a in ref_quantize.pack(grid,
+                                                       jnp.asarray(coords)))
+    # integer counts with powers-of-two ratios (exact log2 boundaries),
+    # ties, and a masked tail
+    count = np.sort(rng.choice([1., 2., 3., 4., 7., 8., 16., 64., 300.],
+                               size=k))[::-1].astype(np.float32)
+    mask = np.arange(k) < k - 13
+    count = np.where(mask, count, 0.0).astype(np.float32)
+    ref = RefHH(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(count),
+                jnp.asarray(mask))
+    port = HeavyHitters(u64.from_numpy(hi), u64.from_numpy(lo),
+                        torch.from_numpy(count), torch.from_numpy(mask))
+    tgrid = quantize.GridSpec(dims=dims, bins=bins, lo=grid.lo, hi=grid.hi)
+    return grid, ref, tgrid, port
+
+
+@pytest.mark.parametrize("scheme", ["uniform", "rank", "count"])
+def test_replica_counts_identical(scheme):
+    _, ref, _, port = _hh(0)
+    np.testing.assert_array_equal(
+        np.asarray(ref_replicas.replica_counts(ref, scheme, 8)),
+        replicas.replica_counts(port, scheme, 8).numpy())
+
+
+@pytest.mark.parametrize("scheme,max_replicas", [("count", 8), ("rank", 3)])
+def test_representatives_match_given_jitter(scheme, max_replicas):
+    grid, ref, tgrid, port = _hh(1)
+    seed = 4
+    rr = ref_replicas.make_representatives(
+        jax.random.split(jax.random.key(seed + 1))[0],
+        grid, ref, scheme=scheme, max_replicas=max_replicas)
+    jit = par.replica_jitter(seed, ref.key_hi, ref.key_lo, max_replicas,
+                             grid.dims, 0.25)
+    tr = replicas.make_representatives(tgrid, port, scheme=scheme,
+                                       max_replicas=max_replicas,
+                                       jitter=torch.from_numpy(jit))
+    np.testing.assert_array_equal(np.asarray(rr.mask), tr.mask.numpy())
+    np.testing.assert_array_equal(np.asarray(rr.weight), tr.weight.numpy())
+    np.testing.assert_array_equal(np.asarray(rr.hh_id), tr.hh_id.numpy())
+    rp, tp = np.asarray(rr.points), tr.points.numpy()
+    assert np.all(np.abs(rp - tp) <= np.spacing(np.abs(rp)))
+    pts, w, ids = replicas.compact(tr)
+    rpts, rw, rids = ref_replicas.compact(rr)
+    assert pts.shape == rpts.shape
+    np.testing.assert_array_equal(rw, w.numpy())
+    np.testing.assert_array_equal(rids, ids.numpy())
+
+
+def test_generator_jitter_stays_inside_the_cell():
+    _, _, tgrid, port = _hh(2)
+    g = torch.Generator().manual_seed(0)
+    reps = replicas.make_representatives(tgrid, port, generator=g,
+                                         jitter_frac=0.25)
+    centers = quantize.cell_center(tgrid, quantize.unpack(
+        tgrid, (port.key_hi, port.key_lo)))
+    off = reps.points.reshape(centers.shape[0], 8, -1) - centers[:, None]
+    cell = torch.as_tensor(tgrid.cell_size)
+    assert bool((off.abs() <= 0.25 * cell * (1 + 1e-5)).all())
+    with pytest.raises(ValueError, match="jitter must have shape"):
+        replicas.make_representatives(tgrid, port,
+                                      jitter=torch.zeros(3, 8, 4))
