@@ -10,6 +10,9 @@ UMAP reduces over BOTH endpoints of every edge, so :func:`edge_layout`
 also builds the dst-sorted ordering and the gather permutation between
 the two orderings: the second reduction is one gather and one more
 segment reduce.
+
+The sparse tSNE backend's P is canonicalised once by :func:`dedupe_edges`
+(sort by (src, dst), fold duplicate ordered pairs).
 """
 from __future__ import annotations
 
@@ -67,3 +70,25 @@ def edge_layout(src: torch.Tensor, dst: torch.Tensor, n: int
         src_bounds=row_bounds(s, n),
         dst_order=dst_order,
         dst_bounds=row_bounds(d[dst_order], n)), order
+
+
+def dedupe_edges(src: torch.Tensor, dst: torch.Tensor, val: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Canonical COO: sort by (src, dst), fold duplicate ordered pairs.
+
+    Returns (src, dst, val) of the same fixed shape (E,), sorted
+    lexicographically, each distinct ordered pair carrying its total on
+    the first entry of its run and 0 on the duplicates.  The reference's
+    ``jnp.lexsort((dst, src))`` is one stable sort of the int64 key
+    src·2³² + dst (ids below 2³¹).  Setup only: the run-head fold is an
+    ``index_add_``.  On a kNN-built edge list a pair occurs at most twice,
+    and a two-term sum does not depend on its order, so there the result
+    is bit-identical to the reference's."""
+    s64, d64 = src.to(torch.int64), dst.to(torch.int64)
+    order = torch.sort(s64 * (1 << 32) + d64, stable=True)[1]
+    s, d, v = s64[order], d64[order], val[order]
+    new_run = torch.ones_like(s, dtype=torch.bool)
+    new_run[1:] = (s[1:] != s[:-1]) | (d[1:] != d[:-1])
+    run_id = torch.cumsum(new_run, 0) - 1
+    run_sum = torch.zeros_like(v).index_add_(0, run_id, v)
+    return s, d, torch.where(new_run, run_sum[run_id], 0.0)

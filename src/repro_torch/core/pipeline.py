@@ -5,19 +5,19 @@
                                         sketch scatter and the candidate
                                         top-k, then core.heavy_hitters
     3. representatives per heavy bin → core.replicas
-    4. embed them with UMAP          → core.umap
+    4. embed them with tSNE or UMAP  → core.tsne / core.umap
 
 Entry points (:func:`run`, :func:`sketch_stage`, :func:`embed_stage`)
 run on the card unless the caller asks for another device: ``device=None``
 means ``cuda`` and raises where there is none.  Random draws come from
 ``torch.Generator``s seeded from ``cfg.seed`` on the run's device (hash
-parameters from ``seed``; jitter, UMAP init and negatives from
-``seed + 1``); :class:`Draws` takes any of them from outside instead.
+parameters from ``seed``; jitter, the embedder's init and UMAP's
+negatives from ``seed + 1``); :class:`Draws` takes any of them from
+outside instead.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``embedder="tsne"`` (P8 sparse, P10 exact), chunk-iterator input
-(streaming, P11), ``mesh=`` and ``embed_mesh`` (P12), approximate kNN
-(P9, in ``neighbors.knn_graph``).
+item: chunk-iterator input (streaming, P11), ``mesh=`` and
+``embed_mesh`` (P12), approximate kNN (P9, in ``neighbors.knn_graph``).
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from repro_torch.core import candidates as cand_mod
 from repro_torch.core import hashing, quantize, replicas
 from repro_torch.core import heavy_hitters as hh_mod
 from repro_torch.core import sketch as sketch_mod
+from repro_torch.core import tsne as tsne_mod
 from repro_torch.core import umap as umap_mod
 from repro_torch.core.heavy_hitters import HeavyHitters
 from repro_torch.core.quantize import GridSpec
@@ -52,15 +53,15 @@ class SnsConfig:
     replica_scheme: str = "count"  # "uniform" | "rank" | "count"
     max_replicas: int = 8
     jitter_frac: float = 0.25
-    embedder: str = "umap"         # "umap" | "tsne" (tsne: ROADMAP P8/P10)
+    embedder: str = "umap"         # "umap" | "tsne"
     embed_dims: int = 2
-    embed_backend: str = "dense"   # tSNE gradient backend (ROADMAP P8/P10)
-    embed_block: int = 512         # row-block of the UMAP kNN build
-    embed_knn: int = 0             # sparse tSNE fan-out (ROADMAP P8)
-    embed_grid: int = 128          # sparse tSNE grid (ROADMAP P8)
+    embed_backend: str = "dense"   # tSNE gradient backend (core.tsne)
+    embed_block: int = 512         # row-block: kNN build, calibration, tiles
+    embed_knn: int = 0             # sparse tSNE fan-out (0 = 3·perplexity)
+    embed_grid: int = 128          # sparse tSNE grid G
     embed_grid_interval: float = 0.0
     embed_grid_max: int = 1024
-    embed_cic: str = "xla"         # sparse tSNE splat/gather (ROADMAP P8)
+    embed_cic: str = "xla"         # validated; selects nothing (core.tsne)
     # kNN build: "exact" | "auto" (exact up to 2¹⁶ points) | "ann"
     # (the approximate engine: ROADMAP P9)
     embed_knn_method: str = "auto"
@@ -132,6 +133,7 @@ class Draws(NamedTuple):
     jitter: Optional[torch.Tensor] = None      # (K, max_replicas, D) f32
     umap_init: Optional[torch.Tensor] = None   # (N_reps, dims) f32
     negatives: Optional[torch.Tensor] = None   # (n_epochs, E, neg_rate) i64
+    tsne_init: Optional[torch.Tensor] = None   # (N_reps, dims) f32
 
 
 @dataclasses.dataclass
@@ -148,6 +150,9 @@ class SnsResult:
     hh_error_bound: float = 0.0
     # host seconds per stage, each ending in a device synchronize
     stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # tSNE's per-iteration KL on the device (None for UMAP); the
+    # reference's embed_points returns it, its run drops it
+    kl_trace: Optional[torch.Tensor] = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -219,16 +224,23 @@ def _sketch_stage_impl(cfg: SnsConfig, points, grid: Optional[GridSpec],
     return grid, hh, float(dropped)
 
 
-def resolve_embed_cfg(cfg: SnsConfig, tsne_cfg=None,
-                      umap_cfg: Optional[umap_mod.UmapConfig] = None
-                      ) -> umap_mod.UmapConfig:
-    """The embedder's config with SnsConfig's block and kNN knobs."""
-    if cfg.embedder == "tsne":
-        raise NotImplementedError("embedder='tsne' is not ported yet: "
-                                  "ROADMAP P8 (sparse) and P10 (exact)")
+def resolve_embed_cfg(cfg: SnsConfig,
+                      tsne_cfg: Optional[tsne_mod.TsneConfig] = None,
+                      umap_cfg: Optional[umap_mod.UmapConfig] = None):
+    """The embedder's config with SnsConfig's backend, block, grid and kNN
+    knobs applied: SnsConfig is authoritative for them, the tsne/umap
+    configs carry the algorithms' hyper-parameters."""
     if cfg.embed_mesh is not None:
         raise NotImplementedError("embed_mesh (mesh-parallel embed) is not "
                                   "ported yet: ROADMAP P12")
+    if cfg.embedder == "tsne":
+        tc = tsne_cfg or tsne_mod.TsneConfig(dims=cfg.embed_dims)
+        return dataclasses.replace(
+            tc, backend=cfg.embed_backend, block=cfg.embed_block,
+            knn=cfg.embed_knn, grid_size=cfg.embed_grid,
+            grid_interval=cfg.embed_grid_interval,
+            grid_max=cfg.embed_grid_max, cic=cfg.embed_cic,
+            knn_method=cfg.embed_knn_method, ann=cfg.embed_ann)
     uc = umap_cfg or umap_mod.UmapConfig(dims=cfg.embed_dims)
     return dataclasses.replace(uc, block=cfg.embed_block,
                                knn_method=cfg.embed_knn_method,
@@ -236,17 +248,19 @@ def resolve_embed_cfg(cfg: SnsConfig, tsne_cfg=None,
 
 
 def embed_points(cfg: SnsConfig, x: torch.Tensor, weights: torch.Tensor,
-                 ecfg: Optional[umap_mod.UmapConfig] = None, *,
-                 init: Optional[torch.Tensor] = None,
+                 ecfg=None, *, init: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
                  negatives: Optional[torch.Tensor] = None,
                  tsne_cfg=None, umap_cfg=None
-                 ) -> Tuple[torch.Tensor, None]:
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run the configured embedder on built representatives.  Returns
-    (embedding, None); the second slot is tSNE's KL trace in the
-    reference."""
+    (embedding, kl_trace): tSNE's per-iteration KL on the device, or
+    None for UMAP.  ``negatives`` is UMAP's only."""
     if ecfg is None:
         ecfg = resolve_embed_cfg(cfg, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg)
+    if cfg.embedder == "tsne":
+        return tsne_mod.run_tsne(x, ecfg, weights=weights, init=init,
+                                 generator=generator)
     emb = umap_mod.run_umap(x, ecfg, weights=weights, init=init,
                             generator=generator, negatives=negatives)
     return emb, None
@@ -258,7 +272,18 @@ def embed_stage(cfg: SnsConfig, grid: GridSpec, hh: HeavyHitters,
                 stage_seconds: Optional[Dict[str, float]] = None
                 ) -> Tuple[Representatives, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
-    """Stages 3-4: replicas + UMAP on the live representatives."""
+    """Stages 3-4: replicas + tSNE/UMAP on the live representatives."""
+    reps, emb, w, ids, _ = _embed_stage_impl(
+        cfg, grid, hh, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg, device=device,
+        draws=draws, stage_seconds=stage_seconds)
+    return reps, emb, w, ids
+
+
+def _embed_stage_impl(cfg: SnsConfig, grid: GridSpec, hh: HeavyHitters,
+                      tsne_cfg=None, umap_cfg=None, *, device=None,
+                      draws: Optional[Draws] = None,
+                      stage_seconds: Optional[Dict[str, float]] = None):
+    """Stages 3-4 plus tSNE's KL trace (None for UMAP)."""
     dev = resolve_device(device)
     ecfg = resolve_embed_cfg(cfg, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg)
     draws = draws or Draws()
@@ -273,12 +298,13 @@ def embed_stage(cfg: SnsConfig, grid: GridSpec, hh: HeavyHitters,
     pts, w, ids = replicas.compact(reps)
     _sync(dev)
     t1 = time.perf_counter()
-    emb, _ = embed_points(cfg, pts, w, ecfg, init=draws.umap_init,
-                          generator=gen, negatives=draws.negatives)
+    init = draws.tsne_init if cfg.embedder == "tsne" else draws.umap_init
+    emb, kl = embed_points(cfg, pts, w, ecfg, init=init, generator=gen,
+                           negatives=draws.negatives)
     _sync(dev)
     times["replicas"] = t1 - t0
     times["embed"] = time.perf_counter() - t1
-    return reps, emb, w, ids
+    return reps, emb, w, ids, kl
 
 
 def run(cfg: SnsConfig, points, grid: Optional[GridSpec] = None, mesh=None,
@@ -297,11 +323,12 @@ def run(cfg: SnsConfig, points, grid: Optional[GridSpec] = None, mesh=None,
                                          hash_params=draws.hash_params)
     _sync(dev)
     times["sketch"] = time.perf_counter() - t0
-    reps, emb, w, ids = embed_stage(cfg, grid, hh, tsne_cfg=tsne_cfg,
-                                    umap_cfg=umap_cfg, device=dev,
-                                    draws=draws, stage_seconds=times)
+    reps, emb, w, ids, kl = _embed_stage_impl(
+        cfg, grid, hh, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg, device=dev,
+        draws=draws, stage_seconds=times)
     coverage = float(hh.count.sum() / max(pts.shape[0], 1))
     return SnsResult(grid=grid, hh=hh, reps=reps, embedding=emb,
                      rep_weight=w, rep_hh_id=ids, coverage=coverage,
-                     hh_error_bound=bound, stage_seconds=times)
+                     hh_error_bound=bound, stage_seconds=times,
+                     kl_trace=kl)
 

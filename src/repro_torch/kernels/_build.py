@@ -6,6 +6,11 @@ directory git ignores), at first use.  The hash covers the source and the
 flags, so an edited source is rebuilt.  :func:`build_all` starts one nvcc
 per source, all at once, and waits for every one of them.
 
+:func:`entry` binds one C function of a library; :func:`launch` calls it
+on the current stream, raises on the CUDA error it returns and counts the
+launch in ``repro_torch.kernels.LAUNCHES``: the one place every kernel
+wrapper launches through.
+
 Nothing here runs at import time: this module imports on a machine with
 no CUDA toolkit, and only a call that needs a kernel builds it.
 """
@@ -18,7 +23,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels import LAUNCHES
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -26,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 
 
@@ -93,3 +103,31 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
             lib = _LIBS[name] = ctypes.CDLL(str(target(name)))
         return lib
+
+
+def entry(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of ``csrc/<name>.cu`` (built and loaded
+    at first use) with its argument types set; it returns a CUDA error
+    code, 0 when its kernels were launched."""
+    key = (name, symbol)
+    fn = _ENTRIES.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _ENTRIES[key] = fn
+    return fn
+
+
+def launch(op: str, fn: ctypes._CFuncPtr, device: torch.device, *args
+           ) -> None:
+    """Call ``fn(*args, stream)`` on ``device``'s current stream, raise if
+    it reports a CUDA error, and count one launch of ``op``."""
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[op] += 1

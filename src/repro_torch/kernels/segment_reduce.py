@@ -23,21 +23,10 @@ import math
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import _build
 
 _C_SIGNATURE = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
                 + [ctypes.c_void_p])
-_FN = None          # the C entry point, set up once at first launch
-
-
-def _fn():
-    global _FN
-    if _FN is None:
-        fn = _build.load("segment_reduce").segment_reduce_f32
-        fn.argtypes = _C_SIGNATURE
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
 
 
 def _check(vals: torch.Tensor, bounds: torch.Tensor) -> None:
@@ -58,11 +47,6 @@ def _check(vals: torch.Tensor, bounds: torch.Tensor) -> None:
         raise ValueError("vals and bounds must be contiguous")
 
 
-def _launch(v, bounds, out, n, d) -> int:
-    return _fn()(v.data_ptr(), bounds.data_ptr(), out.data_ptr(), n, d,
-                 torch.cuda.current_stream().cuda_stream)
-
-
 def segment_reduce_cuda(vals: torch.Tensor, bounds: torch.Tensor
                         ) -> torch.Tensor:
     """Row sums by the hand-written kernel.  ``bounds`` must ascend from 0
@@ -73,15 +57,10 @@ def segment_reduce_cuda(vals: torch.Tensor, bounds: torch.Tensor
     n, d = bounds.shape[0] - 1, v.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=vals.device)
     if n and d:
-        if vals.device.index == torch.cuda.current_device():
-            rc = _launch(v, bounds, out, n, d)
-        else:
-            with torch.cuda.device(vals.device):
-                rc = _launch(v, bounds, out, n, d)
-        if rc != 0:
-            raise RuntimeError(f"segment_reduce kernel launch failed: CUDA "
-                               f"error {rc}")
-        LAUNCHES["segment_reduce"] += 1
+        fn = _build.entry("segment_reduce", "segment_reduce_f32",
+                          _C_SIGNATURE)
+        _build.launch("segment_reduce", fn, vals.device, v.data_ptr(),
+                      bounds.data_ptr(), out.data_ptr(), n, d)
     return out[:, 0] if vals.dim() == 1 else out
 
 

@@ -80,7 +80,7 @@ def test_synthetic_data_and_paper_configs_match_reference():
     np.testing.assert_array_equal(p, rp)
     np.testing.assert_array_equal(lab, rlab)
     from repro.configs import sns_paper as ref_paper
-    for name in ("CANCER", "SDSS"):
+    for name in ("CANCER", "SDSS", "CANCER_100K"):
         ref = dataclasses.asdict(getattr(ref_paper, name))
         assert ref.pop("kernel_mode") == "auto"
         assert dataclasses.asdict(getattr(sns_paper, name)) == ref
@@ -122,7 +122,10 @@ def test_unported_paths_raise_with_their_roadmap_item():
     cfg = pipeline.SnsConfig(bins=4, rows=2, log2_cols=6, top_k=8)
     small = dict(umap_cfg=umap.UmapConfig(n_neighbors=3, n_epochs=1))
     cases = [
-        (dataclasses.replace(cfg, embedder="tsne"), pts, {}, "P8"),
+        (dataclasses.replace(cfg, embedder="tsne", embed_backend="sparse",
+                             embed_knn_method="ann"), pts, {}, "P9"),
+        (dataclasses.replace(cfg, embedder="tsne", embed_mesh=2), pts, {},
+         "P12"),
         (dataclasses.replace(cfg, embed_mesh=2), pts, {}, "P12"),
         (cfg, pts, {"mesh": 2}, "P12"),
         (cfg, iter([pts]), {}, "P11"),
@@ -133,8 +136,6 @@ def test_unported_paths_raise_with_their_roadmap_item():
             pipeline.run(c, p, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="P11"):
         pipeline.sketch_stage(cfg, iter([pts]), device="cpu")
-    with pytest.raises(NotImplementedError, match="P8"):
-        pipeline.resolve_embed_cfg(dataclasses.replace(cfg, embedder="tsne"))
 
 
 def test_entry_points_default_to_the_card():
