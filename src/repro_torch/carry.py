@@ -2,8 +2,10 @@
 
 This system has no weights: its "parameters" are the random draws the
 reference makes with JAX's threefry — hash parameters, cell-keyed replica
-jitter, the tSNE and UMAP inits and UMAP's per-epoch negative samples.  The port draws its own
-from ``torch.Generator``s and does not reproduce threefry; where a test
+jitter, the tSNE and UMAP inits, UMAP's per-epoch negative samples and the
+approximate kNN's rotations, window offsets and descent slots.  The port
+draws its own from ``torch.Generator``s (and, for the descent slots, a
+counter hash) and does not reproduce threefry; where a test
 holds the port to the reference bit for bit, it makes the reference's
 draws with JAX, hands them over as numpy, and these functions turn them
 into the port's types.
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import u64
+from repro_torch.core.ann import AnnDraws
 from repro_torch.core.hashing import MulShiftParams
 from repro_torch.core.pipeline import Draws
 
@@ -32,17 +35,41 @@ def draws_from_numpy(hash_params=None, jitter: Optional[np.ndarray] = None,
                      umap_init: Optional[np.ndarray] = None,
                      negatives: Optional[np.ndarray] = None,
                      tsne_init: Optional[np.ndarray] = None,
+                     ann_rotations: Optional[np.ndarray] = None,
+                     ann_offsets: Optional[np.ndarray] = None,
+                     ann_row_draws: Optional[np.ndarray] = None,
                      device="cpu") -> Draws:
     """Build :class:`pipeline.Draws` from numpy: ``hash_params`` as six
     uint32 arrays, ``jitter`` (K, max_replicas, D), ``umap_init`` and
-    ``tsne_init`` (N_reps, dims), ``negatives`` (n_epochs, E, neg_rate)."""
+    ``tsne_init`` (N_reps, dims), ``negatives`` (n_epochs, E, neg_rate),
+    and the approximate kNN's draws (see :func:`ann_draws_from_numpy`)."""
     def f32(x):
         return None if x is None else torch.as_tensor(
             np.array(x, np.float32), device=device)
+    ann = None if (ann_rotations is None and ann_offsets is None
+                   and ann_row_draws is None) else ann_draws_from_numpy(
+        ann_rotations, ann_offsets, ann_row_draws, device=device)
     return Draws(
         hash_params=None if hash_params is None
         else hash_params_from_numpy(*hash_params, device=device),
         jitter=f32(jitter), umap_init=f32(umap_init),
-        negatives=None if negatives is None else torch.as_tensor(
-            np.array(negatives, np.int64), device=device),
-        tsne_init=f32(tsne_init))
+        negatives=_i64(negatives, device), tsne_init=f32(tsne_init), ann=ann)
+
+
+def _i64(x, device="cpu") -> Optional[torch.Tensor]:
+    return None if x is None else torch.as_tensor(np.array(x, np.int64),
+                                                  device=device)
+
+
+def ann_draws_from_numpy(rotations: Optional[np.ndarray] = None,
+                         offsets: Optional[np.ndarray] = None,
+                         row_draws: Optional[np.ndarray] = None,
+                         device="cpu") -> AnnDraws:
+    """:class:`ann.AnnDraws` from numpy: the rotations after QR (probes,
+    D, D) (``jnp.linalg.qr`` and ``torch.linalg.qr`` may pick other
+    signs), the reverse-window offsets (iters, N) and the descent slots
+    (iters, N, m + 2m²)."""
+    return AnnDraws(
+        rotations=None if rotations is None else torch.as_tensor(
+            np.array(rotations, np.float32), device=device),
+        offsets=_i64(offsets, device), row_draws=_i64(row_draws, device))

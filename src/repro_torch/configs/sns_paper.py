@@ -7,6 +7,8 @@
 
 * cancer_100k: beyond the paper, the reference's own configuration for
   10⁵ heavy hitters: sparse tSNE (kNN attraction + FFT grid repulsion).
+* cancer_1m: the reference's million-representative configuration:
+  sparse tSNE on the approximate kNN graph, adaptive grid up to G = 1024.
 
 Column counts are rounded to powers of two (2¹⁸ = 262144 ≈ 2·10⁵) so the
 bucket hash is a shift.
@@ -30,3 +32,14 @@ CANCER_100K = SnsConfig(
     replica_scheme="count", max_replicas=4, jitter_frac=0.25,
     embedder="tsne", embed_dims=2,
     embed_backend="sparse", embed_block=512, embed_knn=90, embed_grid=128)
+
+# The million-representative regime (src/repro/configs/sns_paper.py):
+# k = 3·perplexity from the approximate kNN engine (core.ann), adaptive
+# grid from G = 256, cell spacing ≤ 0.5 embedding units, G ≤ 1024.
+CANCER_1M = SnsConfig(
+    bins=48, rows=16, log2_cols=22, top_k=1_000_000,
+    replica_scheme="count", max_replicas=1, jitter_frac=0.25,
+    embedder="tsne", embed_dims=2,
+    embed_backend="sparse", embed_block=1024, embed_knn=0, embed_grid=256,
+    embed_grid_interval=0.5, embed_grid_max=1024,
+    embed_knn_method="ann")

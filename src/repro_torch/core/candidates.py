@@ -14,7 +14,8 @@ orders:
 * ``lax.top_k`` ranks by IEEE total order (+0.0 above −0.0) and puts the
   lower index first among ties: :func:`topk_desc` sorts the total-order
   integer image of the scores, stable and descending.  ``torch.topk`` is
-  not used, as its tie order on CUDA is unspecified.
+  not used on tied keys, as its tie order on CUDA is unspecified;
+  :func:`smallest_k` gives it distinct keys only.
 
 Everything is static-shape: L is fixed, and sets with fewer than L
 distinct keys pad with an invalid key and mask=False.
@@ -67,6 +68,19 @@ def topk_desc(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     order, lower index first among ties."""
     idx = torch.sort(total_order(score), descending=True, stable=True)[1][:k]
     return score[idx], idx
+
+
+def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``-lax.top_k(-d, k)`` along the last dim of float32 ``d``: the k
+    smallest in ascending IEEE total order, lower index first among ties
+    (+inf padding included).  Each entry's total-order image and its
+    index are packed into one distinct int64, so ``torch.topk`` has no
+    ties to break.  Returns (values, positions int64)."""
+    col = torch.arange(d.shape[-1], device=d.device)
+    key = total_order(d) * (1 << 32) + col
+    pos = torch.topk(key, k, dim=-1, largest=False, sorted=True)[0]
+    pos &= 0xFFFFFFFF
+    return torch.gather(d, -1, pos), pos
 
 
 def empty(k: int, device=None) -> Candidates:

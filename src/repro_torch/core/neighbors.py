@@ -1,14 +1,20 @@
-"""Exact kNN graph and reverse-edge lookup for the UMAP fuzzy set.
+"""kNN graph, kNN query and reverse-edge lookup for the embedders.
 
-:func:`knn_graph` is the brute-force O(N²·D) build, streamed in row
-blocks so peak memory is O(block · N).  ``lax.top_k(-d, k)`` order is kept
-exactly: each distance's IEEE total-order image and its column index are
-packed into one int64, so every key is distinct and ``torch.topk`` has no
-ties to break.  The approximate engine (``method="ann"``, and ``"auto"``
-above 2¹⁶ points) is not ported yet (ROADMAP P9).
+:func:`knn_graph` picks the build with ``method=``, as the reference
+does:
 
-:func:`reverse_edge_values` gives the value of each directed edge's
-reverse (0 if absent) without any (N, N) temporary.
+* ``"exact"`` — the brute-force O(N²·D) pass, streamed in row blocks so
+  peak memory is O(block · N).  ``lax.top_k(-d, k)`` order is kept
+  exactly (:func:`candidates.smallest_k`);
+* ``"ann"`` — the approximate engine :mod:`repro_torch.core.ann`
+  (grid-cell bucketing with the distance-tile kernel K4 + NN-descent);
+* ``"auto"`` — exact up to ``AnnConfig.auto_threshold`` points, ann
+  above.
+
+:func:`knn_query` is the asymmetric query-vs-corpus kNN (no
+self-exclusion) with the same dispatch.  :func:`reverse_edge_values`
+gives the value of each directed edge's reverse (0 if absent) without
+any (N, N) temporary.
 """
 from __future__ import annotations
 
@@ -16,16 +22,15 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.candidates import total_order
+from repro_torch.core import ann as ann_mod
+from repro_torch.core.candidates import smallest_k
 from repro_torch.core.tsne import pairwise_sq_dists
 
 # reverse_edge_values packs edge (i, j) into the scalar i·n + j, whose
 # max (n−1)·n + (n−1) = n² − 1 fits uint32 iff n ≤ 2¹⁶: the reference's
 # bound for its sort branch, kept here so both ports take the same branch
 PACKED_KEY_N_MAX = 1 << 16
-# knn_graph(method="auto") is exact up to this many points, as in the
-# reference (ann.AnnConfig.auto_threshold)
-ANN_AUTO_THRESHOLD = 1 << 16
+METHODS = ("exact", "auto", "ann")
 
 
 def _knn_rows(x_rows: torch.Tensor, row_ids: torch.Tensor, x: torch.Tensor,
@@ -41,34 +46,67 @@ def _knn_rows(x_rows: torch.Tensor, row_ids: torch.Tensor, x: torch.Tensor,
         d = pairwise_sq_dists(x_rows[s:s + step], x)          # (B, N)
         d = d.masked_fill_(row_ids[s:s + step, None] == col_ids[None, :],
                            float("inf"))
-        # ascending (total order of d, column): lax.top_k(-d)'s order
-        key = total_order(d) * (1 << 32) + col_ids
-        top = torch.topk(key, k, dim=1, largest=False, sorted=True)[0]
-        idx = top & 0xFFFFFFFF
+        top, idx = smallest_k(d, k)
         idx_out.append(idx)
-        dist_out.append(torch.gather(d, 1, idx).clamp_(min=0.0).sqrt_())
+        dist_out.append(top.clamp_(min=0.0).sqrt_())
     return torch.cat(idx_out), torch.cat(dist_out)
 
 
+def _use_ann(method: str, n: int, ann) -> Optional[ann_mod.AnnConfig]:
+    """The ann config when ``method`` picks the approximate engine at
+    ``n`` points, else None (the exact build)."""
+    if method not in METHODS:
+        raise ValueError(f"unknown kNN method: {method!r}")
+    if method == "exact":
+        return None
+    cfg = ann if ann is not None else ann_mod.AnnConfig()
+    return cfg if method == "ann" or n > cfg.auto_threshold else None
+
+
 def knn_graph(x: torch.Tensor, k: int, *, block: Optional[int] = None,
-              mesh=None, method: str = "exact", ann=None
+              mesh=None, method: str = "exact", ann=None,
+              ann_draws: Optional[ann_mod.AnnDraws] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """kNN graph excluding self: (indices (N, k) int64, dists (N, k)).
 
-    ``k`` is clamped to N−1.  ``block`` streams the distance matrix in
-    row chunks of that size (peak memory O(block · N))."""
+    ``k`` is clamped to N−1.  ``method`` is ``"exact"`` (``block``
+    streams the distance matrix in row chunks: peak O(block · N)),
+    ``"ann"`` (``ann`` an optional ``AnnConfig``, ``ann_draws`` optional
+    ``AnnDraws``) or ``"auto"`` (exact up to ``AnnConfig.auto_threshold``
+    points, ann above)."""
     n = x.shape[0]
     k = min(int(k), max(n - 1, 1))
-    if method not in ("exact", "auto", "ann"):
-        raise ValueError(f"unknown kNN method: {method!r}")
-    if method == "ann" or (method == "auto" and n > ANN_AUTO_THRESHOLD):
-        raise NotImplementedError(
-            f"approximate kNN (method={method!r} at N={n}) is not ported "
-            f"yet: ROADMAP P9; use method='exact'")
+    cfg = _use_ann(method, n, ann)
+    if cfg is not None:
+        return ann_mod.ann_knn_graph(x, k, cfg, mesh=mesh, draws=ann_draws)
     if mesh is not None:
         raise NotImplementedError("mesh-sharded kNN is not ported yet: "
                                   "ROADMAP P12")
     return _knn_rows(x, torch.arange(n, device=x.device), x, k, block)
+
+
+def knn_query(q: torch.Tensor, x: torch.Tensor, k: int, *,
+              block: Optional[int] = None, method: str = "exact",
+              ann=None, corpus_graph: Optional[torch.Tensor] = None,
+              ann_draws: Optional[ann_mod.AnnDraws] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest rows of the frozen corpus ``x`` (N, D) for each query in
+    ``q`` (Q, D): (indices (Q, k) int64 into x, dists (Q, k)).
+
+    No self-exclusion: a query identical to a corpus row returns that
+    row at distance 0, so ``k`` clamps to N.  ``method``/``ann`` as in
+    :func:`knn_graph`; the exact path streams ``block``-query chunks
+    (peak O(block · N)); ``corpus_graph`` (corpus kNN indices) feeds the
+    ann path's expansion round."""
+    n = x.shape[0]
+    k = min(int(k), max(n, 1))
+    cfg = _use_ann(method, n, ann)
+    if cfg is not None:
+        return ann_mod.ann_knn_query(q, x, k, cfg, corpus_graph=corpus_graph,
+                                     draws=ann_draws)
+    # query ids of −1 never equal a column id ≥ 0: no exclusion
+    qids = torch.full((q.shape[0],), -1, dtype=torch.int64, device=q.device)
+    return _knn_rows(q, qids, x, k, block)
 
 
 def reverse_edge_values(knn_idx: torch.Tensor, vals_nk: torch.Tensor,

@@ -15,9 +15,12 @@ parameters from ``seed``; jitter, the embedder's init and UMAP's
 negatives from ``seed + 1``); :class:`Draws` takes any of them from
 outside instead.
 
+The approximate kNN build (``core.ann``) draws from its own generators
+seeded from ``AnnConfig.seed``; ``Draws.ann`` takes them from outside.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
 item: chunk-iterator input (streaming, P11), ``mesh=`` and
-``embed_mesh`` (P12), approximate kNN (P9, in ``neighbors.knn_graph``).
+``embed_mesh`` (P12).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from repro_torch.core import heavy_hitters as hh_mod
 from repro_torch.core import sketch as sketch_mod
 from repro_torch.core import tsne as tsne_mod
 from repro_torch.core import umap as umap_mod
+from repro_torch.core.ann import AnnDraws
 from repro_torch.core.heavy_hitters import HeavyHitters
 from repro_torch.core.quantize import GridSpec
 from repro_torch.core.replicas import Representatives
@@ -63,7 +67,7 @@ class SnsConfig:
     embed_grid_max: int = 1024
     embed_cic: str = "xla"         # validated; selects nothing (core.tsne)
     # kNN build: "exact" | "auto" (exact up to 2¹⁶ points) | "ann"
-    # (the approximate engine: ROADMAP P9)
+    # (the approximate engine, core.ann)
     embed_knn_method: str = "auto"
     embed_ann: object = None
     embed_mesh: object = None      # mesh-parallel embed: ROADMAP P12
@@ -134,6 +138,7 @@ class Draws(NamedTuple):
     umap_init: Optional[torch.Tensor] = None   # (N_reps, dims) f32
     negatives: Optional[torch.Tensor] = None   # (n_epochs, E, neg_rate) i64
     tsne_init: Optional[torch.Tensor] = None   # (N_reps, dims) f32
+    ann: Optional[AnnDraws] = None             # the approximate kNN's
 
 
 @dataclasses.dataclass
@@ -251,18 +256,21 @@ def embed_points(cfg: SnsConfig, x: torch.Tensor, weights: torch.Tensor,
                  ecfg=None, *, init: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
                  negatives: Optional[torch.Tensor] = None,
-                 tsne_cfg=None, umap_cfg=None
+                 tsne_cfg=None, umap_cfg=None,
+                 ann_draws: Optional[AnnDraws] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run the configured embedder on built representatives.  Returns
     (embedding, kl_trace): tSNE's per-iteration KL on the device, or
-    None for UMAP.  ``negatives`` is UMAP's only."""
+    None for UMAP.  ``negatives`` is UMAP's only; ``ann_draws`` goes to
+    an approximate kNN build."""
     if ecfg is None:
         ecfg = resolve_embed_cfg(cfg, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg)
     if cfg.embedder == "tsne":
         return tsne_mod.run_tsne(x, ecfg, weights=weights, init=init,
-                                 generator=generator)
+                                 generator=generator, ann_draws=ann_draws)
     emb = umap_mod.run_umap(x, ecfg, weights=weights, init=init,
-                            generator=generator, negatives=negatives)
+                            generator=generator, negatives=negatives,
+                            ann_draws=ann_draws)
     return emb, None
 
 
@@ -300,7 +308,7 @@ def _embed_stage_impl(cfg: SnsConfig, grid: GridSpec, hh: HeavyHitters,
     t1 = time.perf_counter()
     init = draws.tsne_init if cfg.embedder == "tsne" else draws.umap_init
     emb, kl = embed_points(cfg, pts, w, ecfg, init=init, generator=gen,
-                           negatives=draws.negatives)
+                           negatives=draws.negatives, ann_draws=draws.ann)
     _sync(dev)
     times["replicas"] = t1 - t0
     times["embed"] = time.perf_counter() - t1

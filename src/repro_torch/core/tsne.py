@@ -31,10 +31,13 @@ eagerly on the device; its KL trace stays there (one slot per
 iteration, no host read), and only the adaptive grid reads the
 embedding's span back, once per stage, as the reference does.
 
+The sparse backend's kNN graph is exact or approximate
+(``knn_method="ann"``, and ``"auto"`` above 2¹⁶ points: ``core.ann``
+with the distance-tile kernel K4).
+
 Not ported: the mesh-parallel sparse backend (``run_tsne(mesh=...)``,
-``_fft_repulsion_shard``, ``sparse_grad_shard``: ROADMAP P12) and the
-approximate kNN (``knn_method="ann"``, and ``"auto"`` above 2¹⁶ points:
-P9); both raise ``NotImplementedError``.
+``_fft_repulsion_shard``, ``sparse_grad_shard``: ROADMAP P12); it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -82,7 +85,7 @@ class TsneConfig:
     # through kernels/cic.py, whose kernel or twin the device picks
     cic: str = "xla"
     # sparse kNN build: "exact" | "auto" (exact up to 2¹⁶ points) | "ann"
-    # (the approximate engine: ROADMAP P9); ``ann`` carries its knobs
+    # (the approximate engine, core.ann); ``ann`` an ann.AnnConfig
     knn_method: str = "auto"
     ann: Optional[object] = None
 
@@ -271,16 +274,19 @@ def build_sparse_p(x: torch.Tensor, perplexity: float,
                    k: Optional[int] = None,
                    weights: Optional[torch.Tensor] = None,
                    search_iters: int = 50, block: int = 512,
-                   mesh=None, method: str = "exact", ann=None) -> SparseP:
+                   mesh=None, method: str = "exact", ann=None,
+                   ann_draws=None) -> SparseP:
     """kNN graph + kNN calibration + symmetrized COO P: the sparse
-    backend's one-time setup."""
+    backend's one-time setup.  ``ann_draws`` (``ann.AnnDraws``) replaces
+    the approximate build's own draws."""
     from repro_torch.core import neighbors      # neighbors imports this
     n = x.shape[0]
     if k is None:
         k = max(8, int(round(3.0 * perplexity)))
     k = min(k, n - 1)
     idx, dist = neighbors.knn_graph(x, k, block=block, mesh=mesh,
-                                    method=method, ann=ann)
+                                    method=method, ann=ann,
+                                    ann_draws=ann_draws)
     return sparse_p_from_knn(idx, dist, perplexity, weights=weights,
                              search_iters=search_iters)
 
@@ -470,13 +476,14 @@ def run_tsne(x: torch.Tensor, cfg: TsneConfig,
              weights: Optional[torch.Tensor] = None,
              backend: Optional[str] = None, mesh=None,
              init: Optional[torch.Tensor] = None, *,
-             generator: Optional[torch.Generator] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             generator: Optional[torch.Generator] = None,
+             ann_draws=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full tSNE on ``x``'s device: (embedding (N, dims), KL trace
     (n_iter,)).  ``backend`` overrides ``cfg.backend``.  ``init`` seeds
     the optimizer at given (N, dims) coordinates instead of the
     1e-4·normal cold start drawn from ``generator``; with ``n_iter == 0``
-    the init comes back bit for bit."""
+    the init comes back bit for bit.  ``ann_draws`` goes to the sparse
+    backend's approximate kNN build."""
     backend = backend or cfg.backend
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; want one of {BACKENDS}")
@@ -502,7 +509,7 @@ def run_tsne(x: torch.Tensor, cfg: TsneConfig,
                             weights=weights,
                             search_iters=cfg.sigma_search_iters,
                             block=cfg.block, method=cfg.knn_method,
-                            ann=cfg.ann)
+                            ann=cfg.ann, ann_draws=ann_draws)
 
         def grad_fn(y, exag, g):
             return sparse_grad(y, sp, exag, grid_size=g)

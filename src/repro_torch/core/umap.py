@@ -1,7 +1,8 @@
 """UMAP (McInnes-Healy-Melville 2018), epoch-batched, on tensors — the
 paper's embedder and the port's first.
 
-* exact kNN graph (``neighbors.knn_graph``),
+* kNN graph (``neighbors.knn_graph``: exact, or approximate above 2¹⁶
+  points),
 * fuzzy simplicial set: per-point rho (nearest distance) and sigma by
   bisection so Σ_j exp(−(d−rho)/sigma) = log₂(k), symmetrized by the
   probabilistic t-conorm a ⊕ a' = a + a' − a·a',
@@ -44,8 +45,8 @@ class UmapConfig:
     init_scale: float = 10.0
     sigma_search_iters: int = 50
     block: int = 4096              # kNN row-block; N <= block -> one block
-    # kNN build: "exact" | "auto" (exact up to 2¹⁶ points) | "ann" (not
-    # ported yet: ROADMAP P9); ``ann`` carries the ann knobs
+    # kNN build: "exact" | "auto" (exact up to 2¹⁶ points) | "ann" (the
+    # approximate engine, core.ann); ``ann`` an ann.AnnConfig
     knn_method: str = "auto"
     ann: Optional[object] = None
 
@@ -166,17 +167,20 @@ def run_umap(x: torch.Tensor, cfg: UmapConfig,
              weights: Optional[torch.Tensor] = None, mesh=None,
              init: Optional[torch.Tensor] = None, *,
              generator: Optional[torch.Generator] = None,
-             negatives: Optional[torch.Tensor] = None) -> torch.Tensor:
+             negatives: Optional[torch.Tensor] = None,
+             ann_draws=None) -> torch.Tensor:
     """Full UMAP on ``x``'s device: kNN → fuzzy set → SGD.  (N, dims).
 
     ``init`` seeds the SGD at given (N, dims) coordinates instead of the
-    uniform cold start (validated for shape and dtype)."""
+    uniform cold start (validated for shape and dtype); ``ann_draws``
+    goes to an approximate kNN build."""
     if mesh is not None:
         raise NotImplementedError("mesh-parallel UMAP is not ported yet: "
                                   "ROADMAP P12")
     init = validate_init(init, x.shape[0], cfg.dims)
     idx, dist = neighbors.knn_graph(x, cfg.n_neighbors, block=cfg.block,
-                                    method=cfg.knn_method, ann=cfg.ann)
+                                    method=cfg.knn_method, ann=cfg.ann,
+                                    ann_draws=ann_draws)
     edges, memb = fuzzy_simplicial_set(idx, dist, weights=weights,
                                        search_iters=cfg.sigma_search_iters)
     return optimize_embedding(edges, memb, x.shape[0], cfg, init=init,

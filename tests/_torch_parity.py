@@ -57,10 +57,11 @@ def tsne_init(seed: int, n: int, dims: int) -> np.ndarray:
     return np.array(1e-4 * jax.random.normal(embed_key(seed), (n, dims)))
 
 
-def tsne_pipelines(backend: str, n_iter: int):
+def tsne_pipelines(backend: str, n_iter: int, knn_method: str = "auto"):
     """``pipeline.run`` with ``embedder="tsne"`` on ``backend``, in the
     reference and in the port (on the CPU) on the same 4000 points, the
-    port given the reference's hash parameters, jitter and tSNE init.
+    port given the reference's hash parameters, jitter and tSNE init (and,
+    with ``knn_method="ann"``, the approximate kNN's draws).
 
     Four well-separated blobs, a few hundred representatives; the
     learning rate is 10, not 200: at 200 a run of ~180 points blows up
@@ -68,6 +69,7 @@ def tsne_pipelines(backend: str, n_iter: int):
     backend).  Returns (reference result, port result, labels of the
     representatives by their nearest blob centre)."""
     import torch
+    from repro.core import ann as ref_ann
     from repro.core import pipeline as ref_pipeline
     from repro.core import tsne as ref_tsne
     from repro_torch import carry
@@ -79,18 +81,23 @@ def tsne_pipelines(backend: str, n_iter: int):
     pts, _ = gaussian_mixture(4000, spec, seed=3)
     kw = dict(bins=8, rows=4, log2_cols=10, top_k=96, max_replicas=4,
               embedder="tsne", embed_backend=backend, embed_grid=64,
-              embed_block=128)
+              embed_block=128, embed_knn_method=knn_method)
     tc = dict(n_iter=n_iter, perplexity=10.0, learning_rate=10.0,
               exaggeration_iters=25, momentum_switch=25)
     ref_cfg = ref_pipeline.SnsConfig(**kw)
     ref = ref_pipeline.run(ref_cfg, jnp.asarray(pts),
                            tsne_cfg=ref_tsne.TsneConfig(**tc))
     n = ref.embedding.shape[0]
+    rots = offs = slots = None
+    if knn_method == "ann":
+        k = min(max(8, round(3.0 * tc["perplexity"])), n - 1)
+        rots, offs, slots = ann_draws(ref_ann.AnnConfig(), n, 4, k)
     draws = carry.draws_from_numpy(
         hash_params=hash_params(ref_cfg.seed, ref_cfg.rows),
         jitter=replica_jitter(ref_cfg.seed, ref.hh.key_hi, ref.hh.key_lo,
                               ref_cfg.max_replicas, 4, ref_cfg.jitter_frac),
-        tsne_init=tsne_init(ref_cfg.seed, n, 2))
+        tsne_init=tsne_init(ref_cfg.seed, n, 2), ann_rotations=rots,
+        ann_offsets=offs, ann_row_draws=slots)
     got = pipeline.run(pipeline.SnsConfig(**kw), pts, device="cpu",
                        draws=draws, tsne_cfg=tsne.TsneConfig(**tc))
     reps = got.reps.points[got.reps.mask]
@@ -106,17 +113,17 @@ def centroid_accuracy(y: np.ndarray, labels: np.ndarray) -> float:
     return float((d.argmin(1) == labels).mean())
 
 
-def assert_tsne_pipelines_agree(backend: str):
-    """The whole-run contract for one backend: heavy hitters and
-    representatives identical; the embedding within 1e-3 of the
-    reference's after 10 iterations; after 50 (where the chaotic
+def assert_tsne_pipelines_agree(backend: str, knn_method: str = "auto"):
+    """The whole-run contract for one backend and kNN build: heavy
+    hitters and representatives identical; the embedding within 1e-3 of
+    the reference's after 10 iterations; after 50 (where the chaotic
     optimizer has amplified fp differences) blob separation at least
     the reference's less 0.02 and the exact-objective KL within 5 % of
     the reference's."""
     import torch
     from repro_torch.core import tsne
 
-    ref, got, _ = tsne_pipelines(backend, 10)
+    ref, got, _ = tsne_pipelines(backend, 10, knn_method)
     for f in ref.hh._fields:
         np.testing.assert_array_equal(
             np.asarray(getattr(ref.hh, f)).astype(np.float64),
@@ -130,7 +137,7 @@ def assert_tsne_pipelines_agree(backend: str):
     np.testing.assert_allclose(got.embedding.numpy(),
                                np.asarray(ref.embedding), rtol=0, atol=1e-3)
 
-    ref, got, labels = tsne_pipelines(backend, 50)
+    ref, got, labels = tsne_pipelines(backend, 50, knn_method)
     y_ref, y_got = np.asarray(ref.embedding), got.embedding.numpy()
     assert np.isfinite(y_got).all()
     assert centroid_accuracy(y_got, labels) >= min(
@@ -140,3 +147,30 @@ def assert_tsne_pipelines_agree(backend: str):
                                                   weights=got.rep_weight))
     kl_ref = tsne.kl_divergence(p, torch.from_numpy(y_ref.copy())).item()
     assert tsne.kl_divergence(p, got.embedding).item() <= 1.05 * kl_ref
+
+
+def ann_draws(cfg, n: int, d: int, k: int):
+    """(rotations (probes, d, d) after QR, offsets (iters, n), row slots
+    (iters, n, m + 2m²)) as the reference's ``ann._ann_build`` draws them
+    for ``n`` points in ``d`` dims with the clamped ``k``."""
+    kp, kd = jax.random.split(jax.random.PRNGKey(cfg.seed))
+    rots = np.stack([np.array(jnp.linalg.qr(jax.random.normal(
+        jax.random.fold_in(kp, p), (d, d), dtype=jnp.float32))[0])
+        for p in range(cfg.probes)])
+    ndraw = cfg.sample + 2 * cfg.sample ** 2
+    rows = jax.jit(jax.vmap(lambda kc, r: jax.random.randint(
+        jax.random.fold_in(kc, r), (ndraw,), 0, k), in_axes=(None, 0)))
+    offs, slots = [], []
+    for it in range(cfg.iters):
+        kr, kc = jax.random.split(jax.random.fold_in(kd, it))
+        offs.append(np.array(jax.random.randint(kr, (n,), 0, 1 << 30)))
+        slots.append(np.array(rows(kc, jnp.arange(n, dtype=jnp.int32))))
+    return rots, np.stack(offs), np.stack(slots)
+
+
+def ann_query_rotations(cfg, d: int) -> np.ndarray:
+    """The rotations of the reference's ``ann._ann_query``."""
+    kp = jax.random.PRNGKey(cfg.seed)
+    return np.stack([np.array(jnp.linalg.qr(jax.random.normal(
+        jax.random.fold_in(kp, p), (d, d), dtype=jnp.float32))[0])
+        for p in range(cfg.probes)])

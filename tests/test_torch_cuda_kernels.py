@@ -18,14 +18,18 @@ Tolerances, as chip_smoke.py holds the kernels:
 * K5a tsne_z / K5b tsne_forces: against the float64 plain version, Z and
   the KL rtol 1e-5, forces within 1e-4 of the largest force (the
   reference's own bar, tests/test_embed_backends.py); fp64 partials
-  summed in a fixed order, so identical from call to call."""
+  summed in a fixed order, so identical from call to call.
+* K4 knn_dist_tiles: the same +inf pattern as the float64 plain version,
+  finite values within 1e-5 of |q|² + |c|² (the fp32 Gram form rounds
+  at that scale), identical from call to call."""
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import coo, tsne
+from repro_torch.core import ann, coo, tsne
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import cic
+from repro_torch.kernels import knn_tile
 from repro_torch.kernels import segment_reduce as segred
 from repro_torch.kernels import tsne_forces as tf
 
@@ -206,3 +210,86 @@ def test_new_wrappers_reject_bad_inputs(card):
         tf.tsne_forces_cuda(torch.zeros((8, 33), device=card), y,
                             torch.ones((8, 4), device=card),
                             torch.ones((), device=card), 1.0)
+
+
+def _knn_tile_case(t, b, d, seed):
+    """Random tiles with window padding (cid −1), self pairs, padded query
+    rows and a half-empty last tile."""
+    rng = np.random.default_rng(seed)
+    c = 3 * b
+    qx = rng.normal(size=(t, b, d)).astype(np.float32) * 3
+    cx = rng.normal(size=(t, c, d)).astype(np.float32) * 3
+    qid = rng.integers(0, 10 * b, (t, b)).astype(np.int32)
+    cid = rng.integers(0, 10 * b, (t, c)).astype(np.int32)
+    cid[0, :b] = -1                                  # left halo of tile 0
+    qid[-1, b // 2:] = -1
+    cid[-1, c // 2:] = -1
+    cid[:, b:2 * b] = qid                            # the tile's own rows
+    return [torch.from_numpy(a) for a in (qx, qid, cx, cid)]
+
+
+def _layout_case(n, k, d, seed):
+    """A real probe layout of ``n`` blob points (partial last tile)."""
+    rng = np.random.default_rng(seed)
+    cent = rng.uniform(0, 1, (10, d))
+    x = torch.from_numpy((cent[rng.integers(0, 10, n)] + 0.02 * rng.normal(
+        size=(n, d))).astype(np.float32))
+    rot = torch.linalg.qr(torch.randn((d, d), generator=torch.Generator(
+    ).manual_seed(seed)))[0]
+    return list(ann._probe_layout(x, k, rot, ann.AnnConfig())[:4])
+
+
+def _check_knn_tile(card, args):
+    qx, qid, cx, cid = args
+    dev = [a.to(card) for a in args]
+    before = LAUNCHES["knn_dist_tiles"]
+    got = knn_tile.distance_tiles(*dev)
+    again = knn_tile.distance_tiles_cuda(*dev)
+    torch.cuda.synchronize()
+    assert LAUNCHES["knn_dist_tiles"] == before + 2
+    assert torch.equal(got, again)
+    want = knn_tile.distance_tiles_torch(qx.double(), qid, cx.double(), cid)
+    got = got.cpu().double()
+    assert got.shape == want.shape
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    scale = (qx.double() ** 2).sum(2)[:, :, None] \
+        + (cx.double() ** 2).sum(2)[:, None, :]
+    fin = torch.isfinite(want)
+    err = (got - want).abs()[fin]
+    assert bool((err <= 1e-5 * scale[fin]).all()), err.max().item()
+
+
+KNN_TILE_CASES = [(1, 128, 8), (37, 128, 8), (5, 200, 3), (3, 64, 64),
+                  (2, 90, 17), (4, 128, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,b,d", KNN_TILE_CASES)
+def test_knn_tile_kernel_matches_plain(card, t, b, d):
+    _check_knn_tile(card, _knn_tile_case(t, b, d, t + b + d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d", [(5000, 90, 8), (1000, 15, 4)])
+def test_knn_tile_kernel_on_a_probe_layout(card, n, k, d):
+    _check_knn_tile(card, _layout_case(n, k, d, n))
+
+
+@pytest.mark.cuda
+def test_knn_tile_wrapper_rejects_bad_inputs(card):
+    qx, qid, cx, cid = [a.to(card) for a in _knn_tile_case(2, 8, 3, 0)]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        knn_tile.distance_tiles_cuda(qx.cpu(), qid, cx, cid)
+    with pytest.raises(ValueError, match="float32"):
+        knn_tile.distance_tiles_cuda(qx.double(), qid, cx, cid)
+    with pytest.raises(ValueError, match="int32"):
+        knn_tile.distance_tiles_cuda(qx, qid.long(), cx, cid)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        knn_tile.distance_tiles_cuda(qx, qid, cx[:, :5], cid)
+    with pytest.raises(ValueError, match="D must be"):
+        z = torch.zeros((2, 8, 65), device=card)
+        knn_tile.distance_tiles_cuda(z, qid, torch.zeros((2, 24, 65),
+                                                         device=card), cid)
+    with pytest.raises(ValueError, match="contiguous"):
+        knn_tile.distance_tiles_cuda(qx.transpose(0, 1).contiguous(
+        ).transpose(0, 1), qid, cx, cid)

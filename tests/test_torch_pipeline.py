@@ -23,7 +23,7 @@ from repro.data.synthetic import MixtureSpec as RefSpec
 from repro.data.synthetic import gaussian_mixture as ref_mixture
 from repro_torch import carry
 from repro_torch.configs import sns_paper
-from repro_torch.core import pipeline, umap
+from repro_torch.core import pipeline, tsne, umap
 from repro_torch.data.synthetic import MixtureSpec, gaussian_mixture
 
 
@@ -80,7 +80,7 @@ def test_synthetic_data_and_paper_configs_match_reference():
     np.testing.assert_array_equal(p, rp)
     np.testing.assert_array_equal(lab, rlab)
     from repro.configs import sns_paper as ref_paper
-    for name in ("CANCER", "SDSS", "CANCER_100K"):
+    for name in ("CANCER", "SDSS", "CANCER_100K", "CANCER_1M"):
         ref = dataclasses.asdict(getattr(ref_paper, name))
         assert ref.pop("kernel_mode") == "auto"
         assert dataclasses.asdict(getattr(sns_paper, name)) == ref
@@ -118,24 +118,32 @@ def test_config_has_the_reference_fields_less_kernel_mode():
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
+    """Streaming input (P11) and meshes (P12) raise; the approximate kNN
+    (P9, once raising here too) runs under both embedders."""
     pts, _ = gaussian_mixture(500, MixtureSpec(dims=3), seed=1)
     cfg = pipeline.SnsConfig(bins=4, rows=2, log2_cols=6, top_k=8)
     small = dict(umap_cfg=umap.UmapConfig(n_neighbors=3, n_epochs=1))
     cases = [
-        (dataclasses.replace(cfg, embedder="tsne", embed_backend="sparse",
-                             embed_knn_method="ann"), pts, {}, "P9"),
         (dataclasses.replace(cfg, embedder="tsne", embed_mesh=2), pts, {},
          "P12"),
         (dataclasses.replace(cfg, embed_mesh=2), pts, {}, "P12"),
         (cfg, pts, {"mesh": 2}, "P12"),
         (cfg, iter([pts]), {}, "P11"),
-        (dataclasses.replace(cfg, embed_knn_method="ann"), pts, small, "P9"),
     ]
     for c, p, kw, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             pipeline.run(c, p, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="P11"):
         pipeline.sketch_stage(cfg, iter([pts]), device="cpu")
+    for c, kw in [
+            (dataclasses.replace(cfg, embedder="tsne", embed_backend="sparse",
+                                 embed_knn_method="ann", embed_grid=16),
+             dict(tsne_cfg=tsne.TsneConfig(n_iter=5, perplexity=2.0))),
+            (dataclasses.replace(cfg, embed_knn_method="ann"), small)]:
+        res = pipeline.run(c, pts, device="cpu", **kw)
+        n = int(res.reps.mask.sum())
+        assert n > 3 and res.embedding.shape == (n, 2)
+        assert bool(torch.isfinite(res.embedding).all())
 
 
 def test_entry_points_default_to_the_card():

@@ -71,17 +71,23 @@ def test_sparse_p_from_knn_matches_reference(weighted):
 
 
 def test_build_sparse_p_end_to_end_and_unported_knn():
+    """Exact and approximate kNN builds (the latter, once unported,
+    given the reference's draws) give the reference's P."""
+    from repro.core import ann as ref_ann
+    from repro_torch import carry
     x, w = _blobs(n=200, seed=2)
-    ref = ref_tsne.build_sparse_p(jnp.asarray(x), 10.0, k=25,
-                                  weights=jnp.asarray(w))
-    got = tsne.build_sparse_p(torch.from_numpy(x), 10.0, k=25,
-                              weights=torch.from_numpy(w))
-    np.testing.assert_array_equal(np.asarray(ref.src), got.src.numpy())
-    np.testing.assert_array_equal(np.asarray(ref.dst), got.dst.numpy())
-    np.testing.assert_allclose(got.val.numpy(), np.asarray(ref.val),
-                               rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="P9"):
-        tsne.build_sparse_p(torch.from_numpy(x), 10.0, method="ann")
+    for method in ("exact", "ann"):
+        ref = ref_tsne.build_sparse_p(jnp.asarray(x), 10.0, k=25,
+                                      weights=jnp.asarray(w), method=method)
+        draws = None if method == "exact" else carry.ann_draws_from_numpy(
+            *par.ann_draws(ref_ann.AnnConfig(), 200, 8, 25))
+        got = tsne.build_sparse_p(torch.from_numpy(x), 10.0, k=25,
+                                  weights=torch.from_numpy(w), method=method,
+                                  ann_draws=draws)
+        np.testing.assert_array_equal(np.asarray(ref.src), got.src.numpy())
+        np.testing.assert_array_equal(np.asarray(ref.dst), got.dst.numpy())
+        np.testing.assert_allclose(got.val.numpy(), np.asarray(ref.val),
+                                   rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("g", [16, 64])

@@ -35,9 +35,14 @@ def test_knn_graph_matches_reference(block):
 
 
 def test_knn_graph_unported_paths_raise():
+    """The mesh build (P12) and unknown methods raise; "ann" (P9, once
+    raising here too) returns the graph."""
     x = torch.zeros((10, 2))
-    with pytest.raises(NotImplementedError, match="P9"):
-        neighbors.knn_graph(x, 3, method="ann")
+    idx, dist = neighbors.knn_graph(x + torch.arange(10.)[:, None], 3,
+                                    method="ann")
+    assert idx.shape == dist.shape == (10, 3)
+    assert torch.equal(idx, neighbors.knn_graph(
+        x + torch.arange(10.)[:, None], 3)[0])
     with pytest.raises(NotImplementedError, match="P12"):
         neighbors.knn_graph(x, 3, mesh=4)
     with pytest.raises(ValueError, match="unknown kNN method"):
