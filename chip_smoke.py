@@ -13,14 +13,19 @@ Phases, each failing the run (non-zero exit) if it fails:
                  cells; K5a/K5b at N = 6000 padded to 6144; K4 on random
                  tiles (window padding, self pairs, a half-empty last
                  tile) at several (T, B, D) and on a probe layout of
-                 N = 100 003 points;
+                 N = 100 003 points; K6 at N = 100 003, D ∈ {2, 8, 12} ×
+                 log2_cols ∈ {6, 18, 22} with points on bin edges and
+                 outside the grid; K7 at R ∈ {1, 16} × log2_cols ∈ {6, 18,
+                 22}, integer and weighted; K8 at Q = 40 000;
 3. main        — ``pipeline.run`` at the paper's cancer configuration
                  (``CANCER``, UMAP, exact kNN) on
                  ``gaussian_mixture(26_000_000, dims=8)``, the paper's 26M
                  post-cut pixels, after a small warm-up run: per-stage
                  times, #HH, #reps, coverage; asserts no NaN, K1's launch
-                 count == 2·n_epochs and blob separation of the reps
-                 labelled by their nearest mixture centre;
+                 count == 2·n_epochs, K7 = K8 = 1 (the sketch stage) and
+                 blob separation of the reps labelled by their nearest
+                 mixture centre (every one-shot path below asserts K7 =
+                 K8 = 1 too);
 4. kernels     — K1 at the main path's shapes against the plain version,
                  the library call and the memory bound; a profile of the
                  UMAP epoch;
@@ -44,11 +49,31 @@ Phases, each failing the run (non-zero exit) if it fails:
                  and K1 = K2 = K3 = 500 launches and recall ≥ 0.9 on 8192
                  sampled rows against their exact rows (``knn_query``
                  against all N); then K4 at its shapes and a profile;
-8. parity      — the sketch stage at 2^20 points on the card, bit-identical
-                 to the port's CPU run given the same hash parameters.
+8. stream      — path I: ``pipeline.run_streaming(CANCER, factory,
+                 grid=None)`` over the same 26M points as host numpy
+                 slices of 1 000 003: stage seconds (grid pass, ingest,
+                 extract, embed), ingest points per second, evict_max,
+                 coverage, #HH, the ingest stage's peak device memory, a
+                 profile of the fold; asserts K7 = 400 (one per chunk
+                 folded, padding chunks included), K8 = 1, K1 = 600, the
+                 fitted grid == ``fit_grid`` on the whole array, the
+                 streaming table bit-identical to the one-shot table at
+                 the same hash parameters, and blob separation; prints
+                 the overlap of its heavy hitters with the one-shot's;
+9. ops         — the reference's fused-ingest entry points
+                 (``kernels/ops.py``) on the first 2^20 points in 16
+                 chunks: K6 (16 launches), K7 at R 16, C 2^16 and K8 on
+                 40 000 keys, each equal to its plain version;
+10. kernels    — K6, K7, K8 at the paths' shapes against the plain
+                 versions, the library calls and the bounds;
+11. parity     — the sketch stage at 2^20 points on the card, bit-identical
+                 to the port's CPU run given the same hash parameters; the
+                 streaming sketch stage likewise (table, reservoir, count,
+                 evict_max, HH), and the ingest stage's peak memory at 26M
+                 within 10 % of its peak at 2^20 points.
 
 Prints the nvidia-smi name/power-limit line, then one
-``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+``{"kernels": [...]}`` line (nine entries: K1-K4, K5a, K5b, K6-K8), then ``{"ok": true, "device": ...}`` last.
 Without CUDA, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
 """
@@ -79,6 +104,12 @@ CHECK_TSNE_POINTS = 6000            # padded to 6144 at block 512
 CHECK_KNN_TILES = ((1, 128, 8), (37, 128, 8), (5, 200, 3), (3, 64, 64),
                    (2, 90, 17))     # (T, B, D); C = 3B
 RECALL_ROWS = 8192                  # path A's recall sample
+STREAM_SLICE = 1_000_003            # path I's host slices, ragged vs 65 536
+CHECK_SKETCH_QUERIES = 40_000       # K8: the CANCER candidate pool
+# the sketch stage of every one-shot path: one scatter, one estimate
+ONE_SHOT_SKETCH = {"sketch_update_table": 1, "sketch_estimate_table": 1}
+# each driven path's launches, by tag (K7 and K8 run on all of them)
+PATH_LAUNCHES = {}
 
 
 def log(*args):
@@ -113,9 +144,10 @@ def device_kernels(prof):
             [(ev.self_device_time_total, ev.count, ev.key) for ev in evs])
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int):
     """Mean device time per call (ms): the summed duration of the CUDA
-    kernels ``iters`` calls run, from torch.profiler (CUPTI)."""
+    kernels ``iters`` calls run, from torch.profiler (CUPTI); None when
+    the profiler recorded no device time for them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -125,18 +157,26 @@ def device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return device_kernels(prof)[0] / iters / 1e3
+    busy_us = device_kernels(prof)[0]
+    return busy_us / iters / 1e3 if busy_us > 0 else None
 
 
 def timings(fns, iters: int) -> dict:
-    """Device ms and back-to-back ms of each named call."""
+    """Device ms and back-to-back ms of each named call.  Where the
+    profiler recorded no device time for a call, its device ms is the
+    back-to-back CUDA-event time, and ``timed_by_events`` names the calls so
+    timed."""
     row = {}
     for key, fn in fns.items():
         if fn is None:
             row[key] = row["call_" + key] = None
             continue
-        row[key] = device_ms(fn, iters)
+        dev = device_ms(fn, iters)
         row["call_" + key] = time_cuda(fn, iters, warmup=2)
+        if dev is None:
+            row.setdefault("timed_by_events", []).append(key)
+            dev = row["call_" + key]
+        row[key] = dev
     return row
 
 
@@ -379,6 +419,135 @@ def phase_check(device):
         f"points (T={lay[0].shape[0]}, B={lay[0].shape[1]}, D={x.shape[1]}, "
         f"partial last tile): max_abs_err {err:.3e} ({rel:.3e} of "
         f"|q|²+|c|²)")
+    phase_check_sketch(device)
+
+
+def hash_inputs(device, n, d, bins, seed):
+    """Points on a [0, 1]^d grid of ``bins`` bins: uniform ones, a third
+    exactly on bin edges, and some outside the grid (clamped)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import quantize
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-0.2, 1.2, size=(n, d)).astype(np.float32)
+    pts[: n // 3] = (rng.integers(0, bins + 1, size=(n // 3, d))
+                     / bins).astype(np.float32)
+    grid = quantize.GridSpec(dims=d, bins=bins, lo=np.zeros(d),
+                             hi=np.ones(d))
+    return grid, torch.from_numpy(pts).to(device)
+
+
+def check_hash_points(params, grid, pts, log2_cols):
+    """K6 bit-exact against its plain version on the same card."""
+    import torch
+    from repro_torch.kernels import hash_points as hp
+    b, s = hp.hash_points_cuda(params, grid, pts, log2_cols)
+    wb, ws = hp.hash_points_torch(params, grid, pts, log2_cols)
+    torch.cuda.synchronize()
+    if not (torch.equal(b, wb) and torch.equal(s, ws)):
+        raise AssertionError(f"hash_points: not bit-exact at D={grid.dims}, "
+                             f"log2_cols={log2_cols}")
+    return 0.0
+
+
+def check_sketch_update(params, hi, lo, v, log2_cols, integer):
+    """K7 into a table already holding counts: bit-exact against the
+    plain version on integer values; weighted values per cell within
+    1e-5·Σ|contributions to the cell| (its starting value included) of
+    the float64 plain version.
+    Returns the max abs error against the float64 plain version."""
+    import torch
+    from repro_torch.core import hashing
+    from repro_torch.kernels import sketch_update as su
+    r = params.rows
+    gen = torch.Generator(device=v.device).manual_seed(log2_cols)
+    start = torch.randint(-5, 5, (r, 1 << log2_cols), generator=gen,
+                          device=v.device).float()
+    got = su.sketch_update_cuda(start.clone(), params, hi, lo, v)
+    want = su.sketch_update_torch(start.double(), params, hi, lo, v)
+    err = (got.double() - want).abs()
+    if integer:
+        if not torch.equal(got, want.float()):
+            raise AssertionError(f"sketch_update: not bit-exact on integer "
+                                 f"values at R={r}, log2_cols={log2_cols}")
+    else:
+        b, _ = hashing.hashes(params, hi, lo, log2_cols)
+        base = (torch.arange(r, device=v.device) << log2_cols)[:, None]
+        scale = start.abs().double().view(-1).index_add_(
+            0, (base | b).reshape(-1),
+            v.abs().double().expand(r, -1).reshape(-1)).view(r, -1)
+        if not bool((err <= 1e-5 * scale).all()):
+            raise AssertionError(f"sketch_update: weighted values off by "
+                                 f"{err.max().item()} at R={r}, "
+                                 f"log2_cols={log2_cols}")
+    return err.max().item()
+
+
+def check_sketch_estimate(table, buckets, signs):
+    """K8 bit-exact (signed zeros included) against its plain version."""
+    import torch
+    from repro_torch.kernels import sketch_estimate as se
+    got = se.sketch_estimate_cuda(table, buckets, signs)
+    want = se.sketch_estimate_torch(table, buckets, signs)
+    if not (torch.equal(got, want) and torch.equal(torch.signbit(got),
+                                                   torch.signbit(want))):
+        raise AssertionError("sketch_estimate: not bit-exact")
+    return 0.0
+
+
+def key_stream(device, n, universe, seed):
+    """(hi, lo) int64 limbs of n keys drawn from ``universe`` distinct
+    64-bit values."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    k = torch.randint(0, universe, (n,), generator=gen, device=device)
+    k = (k * 0x9E3779B97F4A7C1) & ((1 << 62) - 1)
+    return (k >> 32).contiguous(), (k & 0xFFFFFFFF).contiguous()
+
+
+def phase_check_sketch(device):
+    """K6, K7 and K8 against their plain versions."""
+    import torch
+    from repro_torch.core import hashing
+    for d in (2, 8, 12):
+        grid, pts = hash_inputs(device, CHECK_CIC_POINTS, d,
+                                {2: 1000, 8: 25, 12: 16}[d], d)
+        params = hashing.make_params(torch.Generator().manual_seed(d),
+                                     16).to(device)
+        for l2c in (6, 18, 22):
+            check_hash_points(params, grid, pts, l2c)
+    log(f"[check] hash_points at N={CHECK_CIC_POINTS}, R=16, D in (2, 8, "
+        f"12) x log2_cols in (6, 18, 22), bin edges and outside points "
+        f"included: bit-exact")
+    n = CHECK_CIC_POINTS
+    errs = []
+    for r in (1, 16):
+        params = hashing.make_params(torch.Generator().manual_seed(r),
+                                     r).to(device)
+        hi, lo = key_stream(device, n, n // 4, r)
+        gen = torch.Generator(device=device).manual_seed(r)
+        vi = torch.randint(-3, 4, (n,), generator=gen, device=device).float()
+        vw = torch.randn((n,), generator=gen, device=device)
+        vi[::7] = 0.0
+        vw[::7] = 0.0
+        for l2c in (6, 18, 22):
+            check_sketch_update(params, hi, lo, vi, l2c, True)
+            errs.append(check_sketch_update(params, hi, lo, vw, l2c, False))
+    log(f"[check] sketch_update_table at N={n}, R in (1, 16) x log2_cols in "
+        f"(6, 18, 22) onto tables holding counts: bit-exact on integer "
+        f"values; weighted max_abs_err {max(errs):.3e} (within "
+        f"1e-5·Σ|contrib| per cell)")
+    q = CHECK_SKETCH_QUERIES
+    params = hashing.make_params(torch.Generator().manual_seed(8),
+                                 16).to(device)
+    hi, lo = key_stream(device, q, 10 ** 12, 8)
+    b, s = hashing.hashes(params, hi, lo, 18)
+    table = torch.randn((16, 1 << 18), generator=torch.Generator(
+        device=device).manual_seed(8), device=device) * 100
+    table[:, ::3] = 0.0
+    check_sketch_estimate(table, b, s)
+    log(f"[check] sketch_estimate_table at R=16, C=2^18, Q={q} (zero cells "
+        f"included): bit-exact, signed zeros too")
 
 
 def blob_separation(reps, emb, centers):
@@ -414,8 +583,8 @@ def knn_purity(reps, emb, centers, rows=20000):
 
 
 def make_points(device, n_points):
-    """The main paths' input, made once: (points on the card, warm-up
-    points on the host, the mixture spec)."""
+    """The main paths' input, made once: (points on the card, the same
+    points on the host, warm-up points on the host, the mixture spec)."""
     import torch
     from repro_torch.data.synthetic import MixtureSpec, gaussian_mixture
     spec = MixtureSpec(dims=8)
@@ -423,12 +592,11 @@ def make_points(device, n_points):
     t0 = time.perf_counter()
     pts_np, _ = gaussian_mixture(n_points, spec, seed=0)
     pts = torch.from_numpy(pts_np).to(device)
-    del pts_np
     torch.cuda.synchronize()
     log(f"[main] data: {n_points} x 8 float32 points on the card "
         f"({pts.numel() * 4 / 1e6:.0f} MB) made in "
         f"{time.perf_counter() - t0:.1f} s")
-    return pts, warm, spec
+    return pts, pts_np, warm, spec
 
 
 def drive(tag, cfg, pts, warm, spec, device, expect, tsne_cfg=None,
@@ -436,7 +604,8 @@ def drive(tag, cfg, pts, warm, spec, device, expect, tsne_cfg=None,
     """One small warm-up run (which loads the CUDA modules the path uses;
     tSNE at ``warm_tsne_cfg``), then ``pipeline.run(cfg, pts,
     tsne_cfg=tsne_cfg)`` with every launch count set to 0 just before it
-    and read just after.  Asserts finite output of the right shape,
+    and read just after (``pts`` and ``warm`` may be chunk factories: the
+    streaming path).  Asserts finite output of the right shape,
     ``expect`` {op: launches} (or a function of the result giving it),
     finite KL and blob separation: min inter > 1.5 × max intra, or, with
     ``min_knn_purity``, that share of map neighbours from the same blob
@@ -460,6 +629,7 @@ def drive(tag, cfg, pts, warm, spec, device, expect, tsne_cfg=None,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
+    PATH_LAUNCHES[tag] = launches
     n_reps = res.embedding.shape[0]
     log(f"[{tag}] pipeline.run {wall:.3f} s; stages (s): "
         + ", ".join(f"{k} {v:.3f}" for k, v in res.stage_seconds.items()))
@@ -506,7 +676,8 @@ def phase_main(device, pts, warm, spec):
     cfg = dataclasses.replace(CANCER, embed_knn_method="exact")
     n_epochs = pipeline.resolve_embed_cfg(cfg).n_epochs
     res, launches, _ = drive("main", cfg, pts, warm, spec, device,
-                             {"segment_reduce": 2 * n_epochs})
+                             {"segment_reduce": 2 * n_epochs,
+                              **ONE_SHOT_SKETCH})
     return cfg, res, launches
 
 
@@ -669,7 +840,8 @@ def phase_tsne_sparse(device, pts, warm, spec):
     n_iter = ecfg.n_iter
     res, launches, _ = drive(
         "tsne-sparse", cfg, pts, warm, spec, device,
-        {"segment_reduce": n_iter, "cic_splat": n_iter, "cic_gather": n_iter},
+        {"segment_reduce": n_iter, "cic_splat": n_iter, "cic_gather": n_iter,
+         **ONE_SHOT_SKETCH},
         warm_tsne_cfg=tsne.TsneConfig(n_iter=20))
     x, w = res.reps.points[res.reps.mask], res.rep_weight
     n = x.shape[0]
@@ -807,7 +979,8 @@ def phase_tsne_exact(device, pts, warm, spec):
     ecfg = pipeline.resolve_embed_cfg(cfg)
     n_iter = ecfg.n_iter
     res, launches, _ = drive("tsne-exact", cfg, pts, warm, spec, device,
-                             {"tsne_z": n_iter, "tsne_forces": n_iter},
+                             {"tsne_z": n_iter, "tsne_forces": n_iter,
+                              **ONE_SHOT_SKETCH},
                              warm_tsne_cfg=tsne.TsneConfig(n_iter=20))
     x, w = res.reps.points[res.reps.mask], res.rep_weight
     n = x.shape[0]
@@ -898,7 +1071,7 @@ def phase_ann(device, pts, warm, spec):
         tiles = -(-n // ann._bucket_size(acfg, knn_k(n)))
         return {"knn_dist_tiles": acfg.probes * -(-tiles // ann._TILE_CHUNK),
                 "segment_reduce": n_iter, "cic_splat": n_iter,
-                "cic_gather": n_iter}
+                "cic_gather": n_iter, **ONE_SHOT_SKETCH}
     # record the adaptive grid's choices: the last is the final G
     grids, grid_for_span = [], tsne._grid_for_span
 
@@ -987,8 +1160,304 @@ def phase_ann(device, pts, warm, spec):
                             "probes": acfg.probes}}, **k4)
 
 
-def phase_parity(cfg, device):
-    """Sketch stage on the card vs the port's CPU run, same hash params."""
+class IngestSpy:
+    """Wraps ``stream.ingest_all`` (the pipeline calls it through the
+    module) and records each call's final state and, on the card, the
+    ingest stage's peak device memory: ``max_memory_allocated`` after
+    ``reset_peak_memory_stats``, less what was allocated when the stage
+    began."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import stream
+        self.calls, self.orig = [], stream.ingest_all
+
+        def spy(state, *args, **kwargs):
+            cuda = state.sketch.table.is_cuda
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            out = self.orig(state, *args, **kwargs)
+            peak = None
+            if cuda:
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+            self.calls.append((out, peak))
+            return out
+        stream.ingest_all = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import stream
+        stream.ingest_all = self.orig
+
+
+def hh_overlap(a, b) -> float:
+    """Share of b's live heavy-hitter keys that a holds too."""
+    import torch
+    from repro_torch.core import u64
+    ka = u64.sort_key((a.key_hi[a.mask], a.key_lo[a.mask]))
+    kb = u64.sort_key((b.key_hi[b.mask], b.key_lo[b.mask]))
+    return torch.isin(kb, ka).double().mean().item()
+
+
+def phase_stream(device, pts, pts_np, warm, spec):
+    """Path I: ``run_streaming(CANCER, factory, grid=None)`` over the
+    main points as host slices; returns what the kernel rows and the
+    parity phase need: (config, final ingest state, the one-shot runs,
+    the ingest stage's peak device bytes)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.sns_paper import CANCER
+    from repro_torch.core import candidates, pipeline, quantize, sketch, stream
+
+    cfg = dataclasses.replace(CANCER, embed_knn_method="exact")
+    n_epochs = pipeline.resolve_embed_cfg(cfg).n_epochs
+    n = pts_np.shape[0]
+    chunks = -(-n // cfg.ingest_chunk)
+    b = cfg.ingest_superbatch
+    folded = -(-chunks // b) * b
+
+    def factory():
+        return (pts_np[s:s + STREAM_SLICE] for s in range(0, n, STREAM_SLICE))
+
+    def warm_factory():
+        return iter([warm])
+    with IngestSpy() as spy:
+        res, launches, wall = drive(
+            "stream", cfg, factory, warm_factory, spec, device,
+            {"sketch_update_table": folded, "sketch_estimate_table": 1,
+             "segment_reduce": 2 * n_epochs})
+    state, peak = spy.calls[-1]
+    st = res.stage_seconds
+    log(f"[stream] {n} points as {-(-n // STREAM_SLICE)} host slices of "
+        f"{STREAM_SLICE}: {chunks} chunks of {cfg.ingest_chunk}, {folded} "
+        f"folded in superbatches of {b} ({folded - chunks} all-padding); "
+        f"grid pass {st['grid']:.3f} s, ingest {st['ingest']:.3f} s "
+        f"({n / st['ingest'] / 1e6:.2f} M points/s), extract "
+        f"{st['extract']:.3f} s; evict_max {res.hh_error_bound}, coverage "
+        f"{res.coverage:.4f}, #HH {int(res.hh.mask.sum())}; ingest stage "
+        f"peak device memory {peak / 2**20:.2f} MiB above its start")
+    t0 = time.perf_counter()
+    rows = b * cfg.ingest_chunk
+    buf = np.empty((rows, pts_np.shape[1]), np.float32)
+    for _ in stream._superbatches(factory(), rows, lambda d: buf):
+        pass
+    t_pack = time.perf_counter() - t0
+
+    grid = quantize.fit_grid(pts, cfg.bins)
+    if res.grid != grid:
+        raise AssertionError("[stream] the streaming grid differs from "
+                             "fit_grid on the whole array")
+    hp = pipeline._hash_params(cfg, device, None)
+    key_hi, key_lo = quantize.points_to_keys(grid, pts)
+    runs = candidates.sorted_runs(
+        key_hi, key_lo, assume_hi_zero=grid.dims * grid.bits_per_dim <= 32)
+    del key_hi, key_lo
+    table = sketch.update_runs(sketch.init(hp, cfg.log2_cols), runs).table
+    if not torch.equal(table, state.sketch.table):
+        raise AssertionError("[stream] the streaming table differs from the "
+                             "one-shot table at the same hash parameters")
+    _, hh1 = pipeline.sketch_stage(cfg, pts, grid, device=device)
+    log(f"[stream] grid == fit_grid on the whole array; table bit-identical "
+        f"to the one-shot table ({table.abs().sum().item():.0f} = Σ|cell|); "
+        f"heavy hitters: {hh_overlap(res.hh, hh1):.4f} of the one-shot's "
+        f"#HH {int(hh1.mask.sum())} also streamed (equal only while "
+        f"evict_max is 0)")
+    del table
+
+    sub = [pts_np[:PARITY_POINTS]]
+
+    def fold():
+        s0 = stream.init(hp, cfg.log2_cols, cfg.candidate_pool
+                         or 2 * cfg.top_k)
+        return stream.ingest_all(s0, grid, sub, cfg.ingest_chunk, b)
+    fold()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fold()
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    busy_us, kernels = device_kernels(prof)
+    per = PARITY_POINTS // cfg.ingest_chunk
+    log(f"[stream] the fold profiled over {PARITY_POINTS} points ({per} "
+        f"chunks): {t_prof * 1e3:.2f} ms wall, device busy "
+        f"{busy_us / 1e3:.2f} ms ({busy_us / 1e6 / t_prof:.1%}), "
+        f"{busy_us / per:.1f} us and "
+        f"{sum(c for _, c, _ in kernels) // per} kernels a chunk")
+    for t_us, count, name in kernels[:10]:
+        log(f"[profile]   {t_us / per:9.1f} us/chunk  x{count // per:<3d} "
+            f"{name[:90]}")
+    log(f"[stream] host seconds beside device seconds at {n} points: ingest "
+        f"{st['ingest']:.3f} s host wall, of which packing the slices into "
+        f"superbatches alone takes {t_pack:.3f} s on the host; device busy "
+        f"~{busy_us / 1e6 / per * folded:.3f} s ({folded} chunks at the "
+        f"profiled rate)")
+    return cfg, state, runs, peak
+
+
+def phase_ops(device, pts, cfg):
+    """The reference's fused-ingest entry points on the first 2^20 main
+    points in chunks of ``cfg.ingest_chunk``: K6 and K7 once a chunk, K8
+    once, each equal to its plain version on the card."""
+    import torch
+    from repro_torch.core import hashing, pipeline, quantize, sketch
+    from repro_torch.kernels import LAUNCHES, ops
+    from repro_torch.kernels import sketch_estimate as se
+    from repro_torch.kernels import sketch_update as su
+
+    sub = pts[:PARITY_POINTS]
+    grid = quantize.fit_grid(sub, cfg.bins)
+    hp = pipeline._hash_params(cfg, device, None)
+    l2c, step = 16, cfg.ingest_chunk
+    kh, kl = quantize.points_to_keys(grid, sub)
+    q_hi, q_lo = kh[:CHECK_SKETCH_QUERIES], kl[:CHECK_SKETCH_QUERIES]
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    sk = sketch.init(hp, l2c)
+    hashed = []
+    for s in range(0, PARITY_POINTS, step):
+        hashed.append(ops.hash_points(hp, grid, sub[s:s + step], l2c))
+        sk = ops.sketch_update_fused(sk, kh[s:s + step], kl[s:s + step])
+    est = ops.sketch_estimate_mxu(sk, q_hi, q_lo)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    PATH_LAUNCHES["ops"] = launches
+    chunks = PARITY_POINTS // step
+    expect = {"hash_points": chunks, "sketch_update_table": chunks,
+              "sketch_estimate_table": 1}
+    if launches != expect:
+        raise AssertionError(f"[ops] launches {launches}, expected {expect}")
+    wb, ws = hashing.hashes(hp, kh, kl, l2c)
+    same_hash = torch.equal(torch.cat([h[0] for h in hashed], 1), wb) and \
+        torch.equal(torch.cat([h[1] for h in hashed], 1), ws)
+    twin = su.sketch_update_torch(torch.zeros_like(sk.table), hp, kh, kl,
+                                  torch.ones_like(kh, dtype=torch.float32))
+    same_table = torch.equal(sk.table, twin)
+    qb, qs = hashing.hashes(hp, q_hi, q_lo, l2c)
+    same_est = torch.equal(est, sketch.median_rows(
+        se.sketch_estimate_torch(twin, qb, qs)))
+    log(f"[ops] {PARITY_POINTS} points in {chunks} chunks of {step}, R "
+        f"{hp.rows}, C 2^{l2c}: {wall:.3f} s, launches {launches}; "
+        f"hash_points == hashing.hashes(points_to_keys): {same_hash}; "
+        f"sketch_update_fused == the sketch.update twin: {same_table}; "
+        f"sketch_estimate_mxu on {CHECK_SKETCH_QUERIES} keys == the "
+        f"sketch.estimate twin: {same_est}")
+    if not (same_hash and same_table and same_est):
+        raise AssertionError("[ops] a fused-ingest entry point differs from "
+                             "its plain version")
+
+
+def phase_sketch_kernels(device, pts, cfg, state, runs):
+    """K6 on one chunk, K7 on one chunk's runs and on the one-shot's runs
+    at CANCER, K8 on the CANCER candidate pool (Q = 40 000): checked and
+    timed against the plain versions, the library calls and the byte
+    bounds.  Returns their kernels-line entries."""
+    import torch
+    from repro_torch.core import candidates, hashing, pipeline, quantize
+    from repro_torch.kernels import hash_points as hp_mod
+    from repro_torch.kernels import sketch_estimate as se
+    from repro_torch.kernels import sketch_update as su
+
+    hp = pipeline._hash_params(cfg, device, None)
+    grid = quantize.fit_grid(pts, cfg.bins)
+    r, l2c, step = hp.rows, cfg.log2_cols, cfg.ingest_chunk
+    chunk = pts[:step].contiguous()
+    check_hash_points(hp, grid, chunk, l2c)
+    k6 = timings({"ms": lambda: hp_mod.hash_points_cuda(hp, grid, chunk, l2c),
+                  "plain_ms": lambda: hp_mod.hash_points_torch(hp, grid, chunk,
+                                                               l2c),
+                  "library_ms": None}, 100)
+    d = grid.dims
+    nbytes = step * d * 4 + 2 * r * step * 8 + 2 * d * 4 + 6 * r * 8
+    k6["bound_ms"], k6["bound_by"] = op_bound_ms(nbytes)
+    k6["max_abs_err"] = 0.0
+    log_row("hash_points", k6, f"; one chunk N {step}, D {d}, R {r}: "
+            f"{nbytes / 1e6:.2f} MB; bit-exact; no library call computes it")
+
+    key_hi, key_lo = quantize.points_to_keys(grid, chunk)
+    chunk_runs = candidates.sorted_runs(
+        key_hi, key_lo, assume_hi_zero=grid.dims * grid.bits_per_dim <= 32)
+    sides = {}
+    for side, rr, iters in (("chunk", chunk_runs, 100), ("oneshot", runs, 5)):
+        hi, lo = rr.key_hi.contiguous(), rr.key_lo.contiguous()
+        v = (rr.count * rr.live).contiguous()
+        live = (v != 0).nonzero().squeeze(1)
+        b, s = hashing.hashes(hp, hi[live], lo[live], l2c)
+        idx = ((torch.arange(r, device=device) << l2c)[:, None] | b
+               ).reshape(-1)
+        vals = (s.float() * v[live][None, :]).reshape(-1)
+        cells = int(torch.unique(idx).numel())
+        err = check_sketch_update(hp, hi, lo, v, l2c, True)
+        table = torch.zeros((r, 1 << l2c), device=device)
+        flat = table.view(-1)
+        row = timings({
+            "ms": lambda: su.sketch_update_cuda(table, hp, hi, lo, v),
+            "plain_ms": lambda: su.sketch_update_torch(table, hp, hi, lo, v),
+            "library_ms": lambda: flat.index_add_(0, idx, vals)}, iters)
+        n, n_live = hi.shape[0], live.shape[0]
+        nbytes = n * 4 + n_live * 16 + cells * 8
+        row["bound_ms"], row["bound_by"] = op_bound_ms(nbytes)
+        row["max_abs_err"] = err
+        row["shapes"] = {"n": n, "n_live": n_live, "cells": cells, "r": r,
+                         "log2_cols": l2c}
+        log_row(f"sketch_update_table {side}", row,
+                f"; {n} run slots, {n_live} live, {cells} cells touched: "
+                f"{nbytes / 1e6:.2f} MB; library = index_add_ of the live "
+                f"runs' precomputed buckets and signed values (no hash)")
+        sides[side] = row
+        del b, s, idx, vals, table, flat
+
+    q_hi, q_lo = state.cands.key_hi.contiguous(), state.cands.key_lo.contiguous()
+    tab = state.sketch.table
+    qb, qs = hashing.hashes(hp, q_hi, q_lo, l2c)
+    qb, qs = qb.contiguous(), qs.contiguous()
+    check_sketch_estimate(tab, qb, qs)
+    q = qb.shape[1]
+    k8 = timings({"ms": lambda: se.sketch_estimate_cuda(tab, qb, qs),
+                  "plain_ms": lambda: se.sketch_estimate_torch(tab, qb, qs),
+                  "library_ms": lambda: torch.gather(tab, 1, qb) * qs}, 100)
+    nbytes = r * q * (8 + 8 + 4 + 4)
+    k8["bound_ms"], k8["bound_by"] = op_bound_ms(nbytes)
+    k8["max_abs_err"] = 0.0
+    log_row("sketch_estimate_table", k8, f"; R {r}, Q {q}, C 2^{l2c}: "
+            f"{nbytes / 1e6:.2f} MB; bit-exact; library = torch.gather "
+            f"times the signs")
+
+    def by_path(op):
+        return {tag: ls.get(op, 0) for tag, ls in PATH_LAUNCHES.items()
+                if ls.get(op, 0)}
+
+    def entry(name, row, line, path, launches):
+        return dict({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/sketch.cu",
+                     "replaces": f"src/repro/kernels/{path}:{line}",
+                     "launches": sum(launches.values()),
+                     "launches_by_path": launches}, **row)
+    # the top-level numbers are one chunk's: path I launches K7 once a
+    # chunk, the one-shot paths once on all their runs (per_call)
+    k7 = dict(sides["chunk"], max_abs_err=max(
+        s["max_abs_err"] for s in sides.values()), per_call=sides)
+    return (entry("hash_points", k6, 28, "hash_points.py",
+                  by_path("hash_points")),
+            entry("sketch_update_table", k7, 38, "sketch_update.py",
+                  by_path("sketch_update_table")),
+            entry("sketch_estimate_table", k8, 27, "sketch_estimate.py",
+                  by_path("sketch_estimate_table")))
+
+
+def phase_parity(cfg, device, stream_peak, stream_points):
+    """Sketch stage on the card vs the port's CPU run, same hash params:
+    one-shot, then streaming (the fold's table, reservoir, count and
+    watermark too).  The card's streaming run also gives the ingest
+    stage's peak memory at 2^20 points, which path I's at 26M must be
+    within 10 % of."""
     import torch
     from repro_torch.core import hashing, pipeline
     from repro_torch.data.synthetic import MixtureSpec, gaussian_mixture
@@ -1011,6 +1480,39 @@ def phase_parity(cfg, device):
         f"{int(hh_cpu.mask.sum())}, bit-identical: {same}")
     if not same:
         raise AssertionError("card and CPU heavy hitters differ")
+
+    def factory():
+        return (pts[s:s + 100_003] for s in range(0, PARITY_POINTS, 100_003))
+    out = {}
+    with IngestSpy() as spy:
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            out[str(dev)] = pipeline.sketch_stage_streaming(
+                cfg, factory, device=dev, hash_params=hp)
+            torch.cuda.synchronize()
+            out[str(dev) + "_s"] = time.perf_counter() - t0
+    (s_gpu, peak), (s_cpu, _) = spy.calls
+    (g1, hh1, n1), (g2, hh2, n2) = out[str(device)], out["cpu"]
+    same = g1 == g2 and n1 == n2 == PARITY_POINTS and all(
+        torch.equal(a.cpu(), b) for a, b in zip(
+            [s_gpu.sketch.table, *s_gpu.cands, s_gpu.count, s_gpu.evict_max,
+             *hh1],
+            [s_cpu.sketch.table, *s_cpu.cands, s_cpu.count, s_cpu.evict_max,
+             *hh2]))
+    log(f"[parity] streaming sketch stage at {PARITY_POINTS} points (host "
+        f"slices of 100 003): card {out[str(device) + '_s']:.3f} s, CPU "
+        f"{out['cpu_s']:.3f} s, evict_max {s_cpu.evict_max.item()}, #HH "
+        f"{int(hh2.mask.sum())}; table, reservoir, count, evict_max and HH "
+        f"bit-identical: {same}; streaming HH vs one-shot: "
+        f"{hh_overlap(hh2, hh_cpu):.4f}")
+    if not same:
+        raise AssertionError("card and CPU streaming folds differ")
+    log(f"[parity] ingest stage peak device memory above its start: "
+        f"{peak / 2**20:.2f} MiB at {PARITY_POINTS} points, "
+        f"{stream_peak / 2**20:.2f} MiB at {stream_points} points (path I)")
+    if abs(stream_peak - peak) > 0.1 * peak:
+        raise AssertionError("the ingest stage's peak memory grows with the "
+                             "stream's length")
 
 
 def nvidia_smi_line() -> str:
@@ -1053,7 +1555,7 @@ def main(argv=None) -> int:
     for name, rep in reports.items():
         log(f"[build] {name}:\n{rep.strip()}")
     phase_check(device)
-    pts, warm, spec = make_points(device, args.points)
+    pts, pts_np, warm, spec = make_points(device, args.points)
     cfg, res, launches = phase_main(device, pts, warm, spec)
     k1 = phase_kernels(cfg, res, launches)
     del res
@@ -1064,11 +1566,14 @@ def main(argv=None) -> int:
     k1["per_call"]["tsne_sparse"] = k1_sparse
     k5a, k5b = phase_tsne_exact(device, pts, warm, spec)
     k4 = phase_ann(device, pts, warm, spec)
-    del pts
-    phase_parity(cfg, device)
+    cfg_i, state, runs, peak = phase_stream(device, pts, pts_np, warm, spec)
+    phase_ops(device, pts, cfg_i)
+    k6, k7, k8 = phase_sketch_kernels(device, pts, cfg_i, state, runs)
+    del pts, pts_np, state, runs
+    phase_parity(cfg, device, peak, args.points)
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi_line())
-    log(json.dumps({"kernels": [k1, k2, k3, k4, k5a, k5b]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k4, k5a, k5b, k6, k7, k8]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-"""Carry the reference's random draws across.
+"""Carry the reference's random draws, and its streaming states, across.
 
 This system has no weights: its "parameters" are the random draws the
 reference makes with JAX's threefry — hash parameters, cell-keyed replica
@@ -8,7 +8,9 @@ draws its own from ``torch.Generator``s (and, for the descent slots, a
 counter hash) and does not reproduce threefry; where a test
 holds the port to the reference bit for bit, it makes the reference's
 draws with JAX, hands them over as numpy, and these functions turn them
-into the port's types.
+into the port's types.  :func:`ingest_state_from_numpy` does the same for
+a streaming fold's state, so the port can finish a stream the reference
+began.
 """
 from __future__ import annotations
 
@@ -19,8 +21,11 @@ import torch
 
 from repro_torch.core import u64
 from repro_torch.core.ann import AnnDraws
+from repro_torch.core.candidates import Candidates
 from repro_torch.core.hashing import MulShiftParams
 from repro_torch.core.pipeline import Draws
+from repro_torch.core.sketch import CountSketch
+from repro_torch.core.stream import IngestState
 
 
 def hash_params_from_numpy(a1_hi, a1_lo, a2_hi, a2_lo, b_hi, b_lo,
@@ -73,3 +78,23 @@ def ann_draws_from_numpy(rotations: Optional[np.ndarray] = None,
         rotations=None if rotations is None else torch.as_tensor(
             np.array(rotations, np.float32), device=device),
         offsets=_i64(offsets, device), row_draws=_i64(row_draws, device))
+
+
+def ingest_state_from_numpy(state, device="cpu") -> IngestState:
+    """The reference's ``stream.IngestState`` (its arrays as numpy, or
+    anything ``np.asarray`` takes) -> the port's, on ``device``: the
+    sketch table and hash params, the key-sorted reservoir, the count and
+    the eviction watermark.  ``stream.load_state`` carries states across
+    through the shared checkpoint format as well."""
+    def t(x, dtype):
+        return torch.from_numpy(np.array(x).astype(dtype)).to(device)
+    sk, c = state.sketch, state.cands
+    return IngestState(
+        sketch=CountSketch(table=t(sk.table, np.float32),
+                           params=hash_params_from_numpy(*sk.params,
+                                                         device=device)),
+        cands=Candidates(key_hi=t(c.key_hi, np.int64),
+                         key_lo=t(c.key_lo, np.int64),
+                         count=t(c.count, np.float32), mask=t(c.mask, bool)),
+        count=t(state.count, np.float32),
+        evict_max=t(state.evict_max, np.float32))

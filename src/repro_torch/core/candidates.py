@@ -1,11 +1,15 @@
-"""Candidate tracking: sorted key runs and the exact local top-k.
+"""Candidate tracking: sorted key runs, the exact local top-k, reservoir
+merges.
 
 The Count Sketch estimates frequencies but stores no key identities, so
 each shard extracts its exact top-L keys next to the sketch and the heavy
 hitter stage re-estimates them on the sketch.  The currency is
 :class:`KeyRuns`, the output of ONE sort + run-length encoding over the
 keys (:func:`sorted_runs`); the same runs feed the sketch scatter
-(``sketch.update_runs``) and the candidate top-k (:func:`topk_from_runs`).
+(``sketch.update_runs``), the candidate top-k (:func:`topk_from_runs`)
+and, on the streaming fold, the bounded reservoir merge
+(:func:`merge_runs`: a sorted merge against a reservoir kept key-sorted,
+no second sort of the chunk).
 
 Bit-identity with the reference (``repro.core.candidates``) rests on two
 orders:
@@ -38,6 +42,15 @@ class Candidates(NamedTuple):
     key_lo: torch.Tensor    # (L,) int64 holding uint32
     count: torch.Tensor     # (L,) float32, exact local count
     mask: torch.Tensor      # (L,) bool, False for padding
+
+    @property
+    def capacity(self) -> int:
+        """Reservoir size L."""
+        return self.key_hi.shape[0]
+
+    def merge_topk(self, other: "Candidates", k: int) -> "Candidates":
+        """Reservoir merge: see :func:`merge_topk`."""
+        return merge_topk(self, other, k=k)
 
 
 class KeyRuns(NamedTuple):
@@ -172,3 +185,116 @@ def local_topk(key_hi: torch.Tensor, key_lo: torch.Tensor, k: int,
 def concat(*cands: Candidates) -> Candidates:
     """Concatenate candidate sets field by field."""
     return Candidates(*[torch.cat(f) for f in zip(*cands)])
+
+
+def runs_from_candidates(c: Candidates) -> KeyRuns:
+    """View a candidate set of DISTINCT keys (a reservoir or a top-k, in
+    any order) as :class:`KeyRuns` for :func:`merge_runs`: one stable
+    sort puts the live keys ascending; INVALID padding sorts last with
+    count 0."""
+    order = torch.sort(u64.sort_key((c.key_hi, c.key_lo)), stable=True)[1]
+    return KeyRuns(key_hi=c.key_hi[order], key_lo=c.key_lo[order],
+                   count=torch.where(c.mask, c.count, 0.0)[order].to(
+                       torch.float32),
+                   live=c.mask[order])
+
+
+def merge_topk(a: Candidates, b: Candidates, k: int) -> Candidates:
+    """Unordered reservoir merge: concat → sort → dedupe (equal keys sum
+    their counts) → exact top-k, count-descending.  A key held by either
+    side keeps its whole count, so while the distinct keys seen stay ≤ k
+    the reservoir is the exact top-k of the whole stream."""
+    c = concat(a, b)
+    return local_topk(c.key_hi, c.key_lo, k, values=c.count, mask=c.mask)
+
+
+def _searchsorted_pair(b_hi: torch.Tensor, b_lo: torch.Tensor,
+                       q_hi: torch.Tensor, q_lo: torch.Tensor,
+                       side: str) -> torch.Tensor:
+    """searchsorted over (hi, lo) uint32 pairs sorted as 64-bit values:
+    ``torch.searchsorted`` on their :func:`u64.sort_key` (the reference
+    binary-searches with a two-limb comparator).  ``side="left"`` counts
+    the entries of b strictly below each query, ``"right"`` those ≤ it."""
+    return torch.searchsorted(u64.sort_key((b_hi, b_lo)),
+                              u64.sort_key((q_hi, q_lo)), side=side)
+
+
+def merge_runs(pool: Candidates, runs: KeyRuns, k: int
+               ) -> Tuple[Candidates, torch.Tensor]:
+    """Bounded reservoir merge without a sort: the streaming fold's step.
+
+    ``pool`` MUST be key-sorted (live keys ascending, padding at the end:
+    :func:`empty` starts so and this function keeps it so); ``runs`` come
+    deduped and sorted from :func:`sorted_runs`.
+
+    1. each side's slots are ranked in the combined order by a binary
+       search of the other side (the pool first among equal keys) and
+       scattered there;
+    2. equal keys are adjacent, at most two with a nonzero count (the
+       pool's and the chunk's), so a run head's total is its count plus
+       its successor's when that holds the same key;
+    3. the k largest live totals are kept, the lower merged position
+       (the smaller key) first among equal totals, as ``lax.top_k``
+       breaks ties in the reference: their float32 bits and their
+       position are packed into one distinct int64, so ``torch.topk`` has
+       no ties to break;
+    4. the kept heads compact to the front in merged order (a cumsum and
+       a binary search, no host sync), so the result stays key-sorted.
+
+    The live (key → count) set is bit for bit the reference's
+    (``repro.core.candidates.merge_runs``) and :func:`merge_topk`'s; only
+    the storage order differs from the latter.  Returns ``(merged,
+    evicted_max)``: the largest total evicted by THIS merge (0.0 if
+    none), the space-saving diagnostic ``stream.IngestState`` keeps."""
+    pool_n, n = pool.capacity, runs.size
+    tot = pool_n + n
+    dev = pool.key_hi.device
+    p_cnt = pool.count * pool.mask.to(pool.count.dtype)
+    r_cnt = runs.count.to(torch.float32)
+
+    # 1. merged order: ranks by cross binary search (pool first on ties)
+    pos_p = torch.arange(pool_n, device=dev) + _searchsorted_pair(
+        runs.key_hi, runs.key_lo, pool.key_hi, pool.key_lo, "left")
+    pos_r = torch.arange(n, device=dev) + _searchsorted_pair(
+        pool.key_hi, pool.key_lo, runs.key_hi, runs.key_lo, "right")
+    m_hi = torch.empty((tot,), dtype=torch.int64, device=dev)
+    m_lo = torch.empty_like(m_hi)
+    m_cnt = torch.empty((tot,), dtype=torch.float32, device=dev)
+    for dst, src_p, src_r in ((m_hi, pool.key_hi, runs.key_hi),
+                              (m_lo, pool.key_lo, runs.key_lo),
+                              (m_cnt, p_cnt, r_cnt)):
+        dst[pos_p] = src_p
+        dst[pos_r] = src_r
+
+    # 2. pair-add dedupe: a head's total is its count plus its same-key
+    # successor's
+    same_next = torch.zeros((tot,), dtype=torch.bool, device=dev)
+    same_next[:-1] = (m_hi[1:] == m_hi[:-1]) & (m_lo[1:] == m_lo[:-1])
+    new_run = torch.ones((tot,), dtype=torch.bool, device=dev)
+    new_run[1:] = ~same_next[:-1]
+    nxt = torch.zeros_like(m_cnt)
+    nxt[:-1] = m_cnt[1:]
+    csum = m_cnt + torch.where(same_next, nxt, 0.0)
+    live = new_run & (csum > 0)
+
+    # 3. the k largest live totals, lower position first among equals
+    pos = torch.arange(tot, device=dev)
+    rank_key = torch.where(
+        live, csum.view(torch.int32).to(torch.int64) * (1 << 32)
+        + (0xFFFFFFFF - pos), -1)
+    sel = torch.zeros((tot,), dtype=torch.bool, device=dev)
+    sel[torch.topk(rank_key, min(k, tot), sorted=False)[1]] = True
+    sel &= live
+    evicted_max = torch.where(live & ~sel, csum, 0.0).amax()
+
+    # 4. compact the kept heads to the front, in merged (key) order
+    csel = torch.cumsum(sel, 0)
+    src = torch.searchsorted(csel, torch.arange(1, k + 1, device=dev)
+                             ).clamp_(0, tot - 1)
+    valid = torch.arange(k, device=dev) < csel[-1]
+    invalid = torch.tensor(INVALID_KEY, device=dev)
+    out = Candidates(key_hi=torch.where(valid, m_hi[src], invalid),
+                     key_lo=torch.where(valid, m_lo[src], invalid),
+                     count=torch.where(valid, csum[src], 0.0),
+                     mask=valid)
+    return out, evicted_max

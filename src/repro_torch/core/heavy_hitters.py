@@ -39,3 +39,13 @@ def extract(sk: CountSketch, key_hi: torch.Tensor, key_lo: torch.Tensor,
     cands = cand_mod.local_topk(key_hi, key_lo, pool,
                                 values=values, mask=mask)
     return from_candidates(sk, cands, k)
+
+
+def exact_counts(key_hi: torch.Tensor, key_lo: torch.Tensor,
+                 query_hi: torch.Tensor, query_lo: torch.Tensor
+                 ) -> torch.Tensor:
+    """Ground-truth frequency of each query key in the stream (a test
+    oracle).  O(items × queries): test scale only."""
+    eq = (key_hi[None, :] == query_hi[:, None]) & \
+         (key_lo[None, :] == query_lo[:, None])
+    return eq.to(torch.float32).sum(1)

@@ -7,9 +7,10 @@
     3. representatives per heavy bin → core.replicas
     4. embed them with tSNE or UMAP  → core.tsne / core.umap
 
-Entry points (:func:`run`, :func:`sketch_stage`, :func:`embed_stage`)
-run on the card unless the caller asks for another device: ``device=None``
-means ``cuda`` and raises where there is none.  Random draws come from
+Entry points (:func:`run`, :func:`run_streaming`, :func:`sketch_stage`,
+:func:`sketch_stage_streaming`, :func:`embed_stage`) run on the card
+unless the caller asks for another device: ``device=None`` means
+``cuda`` and raises where there is none.  Random draws come from
 ``torch.Generator``s seeded from ``cfg.seed`` on the run's device (hash
 parameters from ``seed``; jitter, the embedder's init and UMAP's
 negatives from ``seed + 1``); :class:`Draws` takes any of them from
@@ -18,15 +19,22 @@ outside instead.
 The approximate kNN build (``core.ann``) draws from its own generators
 seeded from ``AnnConfig.seed``; ``Draws.ann`` takes them from outside.
 
+A chunk iterator or factory instead of an (N, D) array takes the
+streaming path (:func:`run_streaming`): a min/max pass fits the grid when
+none is given, then ``core.stream`` folds the host chunks on the device
+in bounded memory.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: chunk-iterator input (streaming, P11), ``mesh=`` and
-``embed_mesh`` (P12).
+item: ``mesh=``, ``shard_fn=`` and ``embed_mesh`` (P12);
+``chunks_from_loader(faults=...)`` (P13).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
+
+import numpy as np
 
 import torch
 
@@ -34,9 +42,11 @@ from repro_torch.core import candidates as cand_mod
 from repro_torch.core import hashing, quantize, replicas
 from repro_torch.core import heavy_hitters as hh_mod
 from repro_torch.core import sketch as sketch_mod
+from repro_torch.core import stream as stream_mod
 from repro_torch.core import tsne as tsne_mod
 from repro_torch.core import umap as umap_mod
 from repro_torch.core.ann import AnnDraws
+from repro_torch.core.device import resolve_device
 from repro_torch.core.heavy_hitters import HeavyHitters
 from repro_torch.core.quantize import GridSpec
 from repro_torch.core.replicas import Representatives
@@ -160,22 +170,16 @@ class SnsResult:
     kl_trace: Optional[torch.Tensor] = None
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; without CUDA that raises, and the run
-    never carries on on the CPU unless the caller asks for it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the card unless the caller "
-            "passes device='cpu'")
-    return dev
+def _is_points_array(points) -> bool:
+    return hasattr(points, "shape")
+
+
+def _chunk_stream(chunks) -> Iterable:
+    """One pass over a chunk source: a callable factory or an iterable."""
+    return chunks() if callable(chunks) else iter(chunks)
 
 
 def _points_tensor(points, device: torch.device) -> torch.Tensor:
-    if not hasattr(points, "shape"):
-        raise NotImplementedError(
-            "chunk-iterator input (streaming ingest) is not ported yet: "
-            "ROADMAP P11; pass an (N, D) array")
     pts = torch.as_tensor(points, device=device)
     return pts.reshape(-1, pts.shape[-1]).to(torch.float32)
 
@@ -184,6 +188,18 @@ def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("mesh-sharded sketch stage is not ported "
                                   "yet: ROADMAP P12")
+
+
+def _hash_params(cfg: SnsConfig, dev: torch.device,
+                 hash_params: Optional[hashing.MulShiftParams]
+                 ) -> hashing.MulShiftParams:
+    """The given hash parameters on ``dev``, else R drawn from a
+    generator on ``dev`` seeded from ``cfg.seed``."""
+    if hash_params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cfg.seed)
+        hash_params = hashing.make_params(gen, cfg.rows)
+    return hash_params.to(dev)
 
 
 def _sync(device: torch.device) -> None:
@@ -195,7 +211,9 @@ def sketch_stage(cfg: SnsConfig, points, grid: Optional[GridSpec] = None,
                  mesh=None, *, device=None,
                  hash_params: Optional[hashing.MulShiftParams] = None
                  ) -> Tuple[GridSpec, HeavyHitters]:
-    """Stages 1-2: grid + heavy hitters."""
+    """Stages 1-2: grid + heavy hitters.  ``points`` may be a resident
+    (N, D) array or a chunk iterator / factory (the streaming path, as
+    :func:`sketch_stage_streaming`)."""
     grid, hh, _ = _sketch_stage_impl(cfg, points, grid=grid, mesh=mesh,
                                      device=device, hash_params=hash_params)
     return grid, hh
@@ -209,16 +227,16 @@ def _sketch_stage_impl(cfg: SnsConfig, points, grid: Optional[GridSpec],
     withheld from the candidate set; 0 = complete)."""
     _no_mesh(mesh)
     dev = resolve_device(device)
+    if not _is_points_array(points):
+        grid, state = _ingest_stream(cfg, points, grid, dev, hash_params)
+        hh = hh_mod.from_candidates(state.sketch, state.cands, cfg.top_k)
+        return grid, hh, float(stream_mod.space_saving_bound(state))
     pts = _points_tensor(points, dev)
     if grid is None:
         grid = quantize.fit_grid(pts, cfg.bins)
-    if hash_params is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(cfg.seed)
-        hash_params = hashing.make_params(gen, cfg.rows)
     # one sort + RLE feeds the sketch scatter and the candidate top-k
     key_hi, key_lo = quantize.points_to_keys(grid, pts)
-    sk = sketch_mod.init(hash_params.to(dev), cfg.log2_cols)
+    sk = sketch_mod.init(_hash_params(cfg, dev, hash_params), cfg.log2_cols)
     runs = cand_mod.sorted_runs(
         key_hi, key_lo, assume_hi_zero=grid.dims * grid.bits_per_dim <= 32)
     del key_hi, key_lo
@@ -227,6 +245,59 @@ def _sketch_stage_impl(cfg: SnsConfig, points, grid: Optional[GridSpec],
     cands, dropped = cand_mod.topk_from_runs(runs, pool, return_dropped=True)
     hh = hh_mod.from_candidates(sk, cands, cfg.top_k)
     return grid, hh, float(dropped)
+
+
+def sketch_stage_streaming(cfg: SnsConfig, chunks,
+                           grid: Optional[GridSpec] = None, *, device=None,
+                           hash_params: Optional[hashing.MulShiftParams] = None
+                           ) -> Tuple[GridSpec, HeavyHitters, float]:
+    """Stages 1-2 over a chunk stream, in bounded device memory.
+
+    ``chunks``: an iterable of (n_i, D) host arrays, or a zero-argument
+    callable returning one.  With ``grid=None`` two passes are made
+    (min/max, then the fold), so the source must be re-iterable: a
+    callable or a sequence.  Returns (grid, heavy hitters, items
+    ingested), the count from the fold's state."""
+    grid, state = _ingest_stream(cfg, chunks, grid, resolve_device(device),
+                                 hash_params)
+    hh = hh_mod.from_candidates(state.sketch, state.cands, cfg.top_k)
+    return grid, hh, float(state.count)
+
+
+def _ingest_stream(cfg: SnsConfig, chunks, grid: Optional[GridSpec],
+                   dev: torch.device,
+                   hash_params: Optional[hashing.MulShiftParams],
+                   times: Optional[Dict[str, float]] = None
+                   ) -> Tuple[GridSpec, stream_mod.IngestState]:
+    """The grid (a min/max pass over the host chunks when none is given)
+    and the superbatched fold of the stream on ``dev``.  Records "grid"
+    and "ingest" host seconds in ``times``, each ending in a device
+    synchronize."""
+    times = {} if times is None else times
+    t0 = time.perf_counter()
+    if grid is None:
+        if not callable(chunks) and iter(chunks) is chunks:
+            raise ValueError(
+                "grid=None needs two passes over the stream, but `chunks` "
+                "is a one-shot iterator; pass a callable / sequence, or "
+                "fit the grid up front (quantize.fit_grid_streaming)")
+        grid = quantize.fit_grid_streaming(_chunk_stream(chunks), cfg.bins)
+        times["grid"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pool = cfg.candidate_pool or 2 * cfg.top_k
+    state = stream_mod.init(_hash_params(cfg, dev, hash_params),
+                            cfg.log2_cols, pool)
+    state = stream_mod.ingest_all(state, grid, _chunk_stream(chunks),
+                                  cfg.ingest_chunk,
+                                  superbatch=cfg.ingest_superbatch)
+    if float(state.count) == 0.0:
+        # a factory returning the SAME exhausted iterator passes the
+        # re-iterable guard above but yields nothing on the ingest pass
+        raise ValueError(
+            "ingest pass saw no data; if `chunks` is a callable it must "
+            "return a FRESH iterator on every call")
+    times["ingest"] = time.perf_counter() - t0
+    return grid, state
 
 
 def resolve_embed_cfg(cfg: SnsConfig,
@@ -319,8 +390,12 @@ def run(cfg: SnsConfig, points, grid: Optional[GridSpec] = None, mesh=None,
         tsne_cfg=None, umap_cfg=None, *, device=None,
         draws: Optional[Draws] = None) -> SnsResult:
     """Full SnS: points → embedding of weighted heavy-hitter
-    representatives, on ``device`` (None = the card)."""
+    representatives, on ``device`` (None = the card).  A chunk iterator
+    or factory instead of an array goes to :func:`run_streaming`."""
     _no_mesh(mesh)
+    if not _is_points_array(points):
+        return run_streaming(cfg, points, grid=grid, tsne_cfg=tsne_cfg,
+                             umap_cfg=umap_cfg, device=device, draws=draws)
     dev = resolve_device(device)
     resolve_embed_cfg(cfg, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg)  # fail early
     draws = draws or Draws()
@@ -340,3 +415,99 @@ def run(cfg: SnsConfig, points, grid: Optional[GridSpec] = None, mesh=None,
                      hh_error_bound=bound, stage_seconds=times,
                      kl_trace=kl)
 
+
+def run_streaming(cfg: SnsConfig, chunks=None,
+                  grid: Optional[GridSpec] = None, mesh=None, shard_fn=None,
+                  tsne_cfg=None, umap_cfg=None, *, device=None,
+                  draws: Optional[Draws] = None) -> SnsResult:
+    """Full SnS over a stream: no stage holds all N points.
+
+    ``chunks`` is an iterable of (n_i, D) host arrays or a callable
+    factory (re-iterable; needed when ``grid`` is None for the min/max
+    pass).  ``coverage`` is the heavy hitters' mass over the fold's
+    running count.  ``stage_seconds`` holds "grid" (the min/max pass,
+    when it runs), "ingest", "extract" (heavy hitters from the fold),
+    "replicas" and "embed".  ``mesh=``/``shard_fn=`` (the mesh streaming
+    path) raise: ROADMAP P12."""
+    if mesh is not None or shard_fn is not None:
+        raise NotImplementedError("mesh streaming (mesh=, shard_fn=) is not "
+                                  "ported yet: ROADMAP P12")
+    if chunks is None:
+        raise ValueError("single-host streaming needs a chunk source")
+    dev = resolve_device(device)
+    resolve_embed_cfg(cfg, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg)  # fail early
+    draws = draws or Draws()
+    times: Dict[str, float] = {}
+    grid, state = _ingest_stream(cfg, chunks, grid, dev, draws.hash_params,
+                                 times)
+    t0 = time.perf_counter()
+    hh = hh_mod.from_candidates(state.sketch, state.cands, cfg.top_k)
+    total = float(state.count)
+    bound = float(stream_mod.space_saving_bound(state))
+    del state
+    _sync(dev)
+    times["extract"] = time.perf_counter() - t0
+    reps, emb, w, ids, kl = _embed_stage_impl(
+        cfg, grid, hh, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg, device=dev,
+        draws=draws, stage_seconds=times)
+    coverage = float(hh.count.sum()) / max(total, 1.0)
+    return SnsResult(grid=grid, hh=hh, reps=reps, embedding=emb,
+                     rep_weight=w, rep_hh_id=ids, coverage=coverage,
+                     hh_error_bound=bound, stage_seconds=times, kl_trace=kl)
+
+
+def chunks_from_loader(plan, host: int,
+                       make_batch: Callable[[int, int], np.ndarray],
+                       batches_per_shard: int = 1, steal: bool = False,
+                       globally_completed=None,
+                       on_shard_done: Optional[Callable[[int], None]] = None,
+                       faults=None,
+                       on_shard_error: Optional[
+                           Callable[[int, Exception], bool]] = None
+                       ) -> Callable:
+    """Adapt a ``data.loader.ShardPlan`` into the re-iterable chunk
+    factory :func:`run_streaming` takes.  Each pass builds a fresh
+    ``ShardedLoader`` (iteration mutates its ``completed`` set) and yields
+    the raw batches in plan order.
+
+    ``steal=True``: after this host drains its primary slice it takes the
+    other hosts' leftovers in the plan's steal order, skipping the shards
+    ``globally_completed`` (a zero-argument callable read at steal time,
+    or a sequence) names.  ``on_shard_done(shard)`` fires once per shard
+    after its last batch.  ``on_shard_error(shard, exc) -> bool`` decides
+    a failing shard's fate: True skips it (withheld all-or-nothing),
+    False/None re-raises.  ``faults=`` (chaos injection) raises:
+    ``core.faults`` is ROADMAP P13.
+
+    With ``grid=None`` the pipeline iterates the factory twice (min/max,
+    then ingest) while a shared board keeps moving: give the grid up front
+    so only the ingest pass claims shards."""
+    from repro_torch.data.loader import ShardedLoader
+
+    if faults is not None:
+        raise NotImplementedError("chunks_from_loader(faults=...): fault "
+                                  "injection (core.faults) is not ported "
+                                  "yet: ROADMAP P13")
+
+    def factory():
+        loader = ShardedLoader(plan, host, make_batch,
+                               batches_per_shard=batches_per_shard,
+                               on_error=on_shard_error)
+
+        def drain(pairs):
+            prev = None
+            for shard, batch in pairs:
+                if prev is not None and shard != prev \
+                        and on_shard_done is not None:
+                    on_shard_done(prev)
+                prev = shard
+                yield batch
+            if prev is not None and on_shard_done is not None:
+                on_shard_done(prev)
+
+        yield from drain(iter(loader))
+        if steal:
+            done = globally_completed() if callable(globally_completed) \
+                else (globally_completed or ())
+            yield from drain(loader.steal(done))
+    return factory

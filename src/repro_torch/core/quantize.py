@@ -71,12 +71,49 @@ def fit_grid(points: torch.Tensor, bins: int,
     return GridSpec(dims=d, bins=int(bins), lo=lo - pad * span, hi=hi + pad * span)
 
 
-def quantize(grid: GridSpec, points: torch.Tensor) -> torch.Tensor:
-    """(..., D) float32 points -> (..., D) int64 bin coordinates in [0, M)."""
-    lo = torch.as_tensor(grid.lo_arr, device=points.device)
+def fit_grid_streaming(chunks, bins: int, pad: float = 1e-3) -> GridSpec:
+    """Fit the enclosing hypercube from a chunk stream: the first pass of
+    the two-pass streaming pipeline.  A running min/max over host chunks,
+    so no stage holds the whole array; min and max are exact, so the grid
+    equals :func:`fit_grid` on the concatenated points.
+
+    ``chunks``: an iterable of (n_i, D) arrays, or a callable returning
+    one (the re-iterable form ``pipeline.run_streaming`` takes)."""
+    if callable(chunks):
+        chunks = chunks()
+    lo = hi = None
+    d = None
+    for c in chunks:
+        c = np.asarray(c, np.float32)
+        if c.ndim != 2:
+            c = c.reshape(-1, c.shape[-1])
+        if d is None:
+            d = c.shape[1]
+        if c.shape[0] == 0:        # an empty batch: min has no identity
+            continue
+        clo, chi = c.min(axis=0), c.max(axis=0)
+        lo = clo if lo is None else np.minimum(lo, clo)
+        hi = chi if hi is None else np.maximum(hi, chi)
+    if lo is None:
+        raise ValueError("fit_grid_streaming: empty chunk stream")
+    span = np.maximum(hi - lo, 1e-12)
+    return GridSpec(dims=d, bins=int(bins), lo=lo - pad * span,
+                    hi=hi + pad * span)
+
+
+def grid_tensors(grid: GridSpec, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The grid's lower corner and bins per unit, (D,) float32 each, as
+    :func:`quantize` and the hash_points kernel use them."""
+    lo = torch.as_tensor(grid.lo_arr, device=device)
     inv = torch.as_tensor(
         np.asarray(grid.bins / (grid.hi_arr - grid.lo_arr), np.float32),
-        device=points.device)
+        device=device)
+    return lo, inv
+
+
+def quantize(grid: GridSpec, points: torch.Tensor) -> torch.Tensor:
+    """(..., D) float32 points -> (..., D) int64 bin coordinates in [0, M)."""
+    lo, inv = grid_tensors(grid, points.device)
     idx = torch.floor((points - lo) * inv).clamp_(0, grid.bins - 1)
     return idx.to(torch.int64)
 

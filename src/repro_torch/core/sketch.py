@@ -1,14 +1,15 @@
 """Count Sketch (Charikar-Chen-Farach-Colton) on tensors.
 
-The paper's operations (§III-1): init / update / estimate.  The table is
-a linear operator over the frequency vector, so two sketches built with
-the same hashes merge by addition.
+The paper's operations (§III-1): init / update / estimate / merge.  The
+table is a linear operator over the frequency vector, so two sketches
+built with the same hashes merge by addition.
 
-The scatter is ``index_add_`` on the flattened (R·C) table: atomic on the
-card, and exact for integer counts below 2**24, where every order of
-addition gives the same bits, so tables match the reference's bit for bit.
-Hashes are computed in chunks of items, which bounds the (R, items)
-int64 temporaries at full scale.
+On CUDA tensors the scatter of :func:`update` is the hand-written kernel
+K7 (``kernels/sketch_update.py``: R hashes a key in registers, R atomic
+adds, one launch a call) and the gather of :func:`estimate` is K8
+(``kernels/sketch_estimate.py``); CPU tensors take their plain twins
+(``index_add_`` and ``torch.gather``).  Integer counts below 2**24 add to
+the same bits in any order, so tables match the reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -17,10 +18,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import hashing, u64
-from repro_torch.core.candidates import INVALID_KEY, KeyRuns, topk_desc
-
-# items hashed per pass: (R=16, 2**21) int64 temporaries are 256 MiB each
-_HASH_CHUNK = 1 << 21
+from repro_torch.core.candidates import (INVALID_KEY, KeyRuns, sorted_runs,
+                                         topk_desc)
+from repro_torch.kernels.sketch_estimate import sketch_estimate
+from repro_torch.kernels.sketch_update import sketch_update
 
 
 class CountSketch(NamedTuple):
@@ -51,28 +52,54 @@ def update(sk: CountSketch, key_hi: torch.Tensor, key_lo: torch.Tensor,
            mask: Optional[torch.Tensor] = None) -> CountSketch:
     """S[r, h1_r(i)] += h2_r(i)·v_i for a batch of items (returns a new
     sketch; the input table is not modified)."""
+    return update_(sk._replace(table=sk.table.clone()), key_hi, key_lo,
+                   values=values, mask=mask)
+
+
+def update_(sk: CountSketch, key_hi: torch.Tensor, key_lo: torch.Tensor,
+            values: Optional[torch.Tensor] = None,
+            mask: Optional[torch.Tensor] = None) -> CountSketch:
+    """:func:`update` into ``sk``'s own table, in place: for a caller that
+    owns the sketch (the streaming fold), as the reference's jitted fold
+    donates its state.  Returns ``sk``."""
     v = torch.ones_like(key_hi, dtype=sk.table.dtype) if values is None \
         else values.to(sk.table.dtype)
     if mask is not None:
         v = v * mask.to(sk.table.dtype)
-    flat = sk.table.reshape(-1).clone()
-    row_base = (torch.arange(sk.rows, device=flat.device)
-                << sk.log2_cols)[:, None]
-    for s in range(0, key_hi.shape[0], _HASH_CHUNK):
-        sl = slice(s, s + _HASH_CHUNK)
-        buckets, signs = hashing.hashes(sk.params, key_hi[sl], key_lo[sl],
-                                        sk.log2_cols)
-        flat.index_add_(0, (row_base | buckets).reshape(-1),
-                        (signs.to(flat.dtype) * v[sl][None, :]).reshape(-1))
-    return sk._replace(table=flat.reshape(sk.table.shape))
+    sketch_update(sk.table, sk.params, key_hi.contiguous(),
+                  key_lo.contiguous(), v.contiguous())
+    return sk
 
 
 def update_runs(sk: CountSketch, runs: KeyRuns) -> CountSketch:
-    """Scatter pre-deduped sorted key runs.  Only live runs are hashed:
-    dead slots carry count 0 and scatter nothing in the reference either."""
-    live = runs.live.nonzero().squeeze(1)
-    return update(sk, runs.key_hi[live], runs.key_lo[live],
-                  values=runs.count[live])
+    """Scatter pre-deduped sorted key runs.  Dead slots carry count 0 and
+    scatter nothing (the kernel skips them)."""
+    return update(sk, runs.key_hi, runs.key_lo, values=runs.count,
+                  mask=runs.live)
+
+
+def update_sorted(sk: CountSketch, key_hi: torch.Tensor,
+                  key_lo: torch.Tensor, values: Optional[torch.Tensor] = None,
+                  mask: Optional[torch.Tensor] = None) -> CountSketch:
+    """Sort-based update from raw keys: one sort and run-length encoding
+    aggregates duplicates, then one scatter of the runs.  Equivalent to
+    :func:`update`."""
+    runs = sorted_runs(key_hi, key_lo, values=values, mask=mask,
+                       dtype=sk.table.dtype)
+    return update_runs(sk, runs)
+
+
+def merge(a: CountSketch, b: CountSketch) -> CountSketch:
+    """``merge(S1, S2) = S1 + S2``.  The hash parameters must match; that
+    is the caller's contract, as in the paper ("the hashing functions and
+    the sketch matrix sizes must be the same")."""
+    return a._replace(table=a.table + b.table)
+
+
+def l2_estimate(sk: CountSketch) -> torch.Tensor:
+    """AMS-style ℓ₂ estimate: sqrt of the median over rows of Σ_c S[r,c]²
+    (paper §II-3)."""
+    return torch.sqrt(median_rows((sk.table.to(torch.float32) ** 2).sum(1)))
 
 
 def median_rows(x: torch.Tensor) -> torch.Tensor:
@@ -87,8 +114,8 @@ def estimate(sk: CountSketch, key_hi: torch.Tensor, key_lo: torch.Tensor
              ) -> torch.Tensor:
     """Median over rows of h2_r(i)·S[r, h1_r(i)].  (items,) float32."""
     buckets, signs = hashing.hashes(sk.params, key_hi, key_lo, sk.log2_cols)
-    gathered = torch.gather(sk.table, 1, buckets)
-    return median_rows(gathered.to(torch.float32) * signs.to(torch.float32))
+    return median_rows(sketch_estimate(sk.table, buckets.contiguous(),
+                                       signs.contiguous()))
 
 
 def topk_from_candidates(sk: CountSketch, cand_hi: torch.Tensor,

@@ -21,16 +21,28 @@ Tolerances, as chip_smoke.py holds the kernels:
   summed in a fixed order, so identical from call to call.
 * K4 knn_dist_tiles: the same +inf pattern as the float64 plain version,
   finite values within 1e-5 of |q|² + |c|² (the fp32 Gram form rounds
-  at that scale), identical from call to call."""
+  at that scale), identical from call to call.
+* K6 hash_points: bit-exact against the plain version (cell keys from
+  the same two roundings, then exact integer hashing), points on bin
+  edges and outside the grid included.
+* K7 sketch_update_table: bit-exact on integer counts (exact in any
+  order below 2**24); weighted values per cell within
+  1e-5·Σ|contributions to the cell| of the float64 plain version (float
+  atomics add in a schedule-dependent order).
+* K8 sketch_estimate_table: bit-exact (a product with ±1 is exact)."""
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import ann, coo, tsne
+from repro_torch.core import (ann, candidates, coo, hashing, quantize, sketch,
+                              tsne)
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import cic
-from repro_torch.kernels import knn_tile
+from repro_torch.kernels import hash_points as hp_mod
+from repro_torch.kernels import knn_tile, ops
 from repro_torch.kernels import segment_reduce as segred
+from repro_torch.kernels import sketch_estimate as se_mod
+from repro_torch.kernels import sketch_update as su_mod
 from repro_torch.kernels import tsne_forces as tf
 
 CASES = [(1, 16, 2), (16, 0, 2), (64, 3, 2), (33, 9, 3), (40, 5, 0),
@@ -293,3 +305,172 @@ def test_knn_tile_wrapper_rejects_bad_inputs(card):
     with pytest.raises(ValueError, match="contiguous"):
         knn_tile.distance_tiles_cuda(qx.transpose(0, 1).contiguous(
         ).transpose(0, 1), qid, cx, cid)
+
+
+def _params(rows, seed):
+    return hashing.make_params(torch.Generator().manual_seed(seed), rows)
+
+
+def _hash_case(n, d, bins, seed):
+    """Points on a [0, 1] grid: uniform ones, ones exactly on bin edges
+    and ones outside the grid (clamped to the edge cells)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-0.2, 1.2, size=(n, d)).astype(np.float32)
+    pts[: n // 3] = (rng.integers(0, bins + 1, size=(n // 3, d))
+                     / bins).astype(np.float32)
+    grid = quantize.GridSpec(dims=d, bins=bins, lo=np.zeros(d),
+                             hi=np.ones(d))
+    return grid, torch.from_numpy(pts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,bins,l2c", [(100_003, 2, 1000, 6),
+                                          (100_003, 8, 25, 18),
+                                          (4099, 12, 16, 22), (1, 3, 7, 1),
+                                          (0, 4, 8, 10)])
+def test_hash_points_kernel_matches_plain(card, n, d, bins, l2c):
+    grid, pts = _hash_case(n, d, bins, n + d)
+    params = _params(16, d)
+    before = LAUNCHES["hash_points"]
+    b, s = hp_mod.hash_points(params.to(card), grid, pts.to(card), l2c)
+    torch.cuda.synchronize()
+    assert LAUNCHES["hash_points"] == before + (n > 0)
+    wb, ws = hp_mod.hash_points_torch(params, grid, pts, l2c)
+    assert b.dtype == s.dtype == torch.int64 and b.shape == (16, n)
+    assert torch.equal(b.cpu(), wb) and torch.equal(s.cpu(), ws)
+
+
+def _keys(n, seed, universe):
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, universe, size=n, dtype=np.uint64) \
+        * np.uint64(0x9E3779B97F4A7C15)
+    return (torch.from_numpy((k >> np.uint64(32)).astype(np.int64)),
+            torch.from_numpy((k & np.uint64(0xFFFFFFFF)).astype(np.int64)))
+
+
+def _cell_scale(params, hi, lo, v, start):
+    """Σ|contributions| to each cell, its starting value included,
+    float64."""
+    log2_cols = start.shape[1].bit_length() - 1
+    b, _ = hashing.hashes(params, hi, lo, log2_cols)
+    base = (torch.arange(params.rows) << log2_cols)[:, None]
+    flat = start.abs().double().view(-1)
+    flat.index_add_(0, (base | b).reshape(-1),
+                    v.abs().double().expand(params.rows, -1).reshape(-1))
+    return flat.view(params.rows, -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,l2c,n", [(1, 6, 50_000), (16, 18, 65_536),
+                                        (16, 22, 100_003), (5, 10, 1)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sketch_update_kernel_matches_plain(card, rows, l2c, n, weighted):
+    params = _params(rows, l2c)
+    hi, lo = _keys(n, n + rows, universe=max(n // 4, 1))
+    rng = np.random.default_rng(rows)
+    v = torch.from_numpy((rng.normal(size=n) if weighted else
+                          rng.integers(-3, 4, size=n)).astype(np.float32))
+    v[::7] = 0.0                                    # skipped, changes no bit
+    start = torch.from_numpy(rng.integers(-5, 5, size=(rows, 1 << l2c))
+                             .astype(np.float32))
+    before = LAUNCHES["sketch_update_table"]
+    got = su_mod.sketch_update(start.to(card), params.to(card), hi.to(card),
+                               lo.to(card), v.to(card)).cpu()
+    torch.cuda.synchronize()
+    assert LAUNCHES["sketch_update_table"] == before + 1
+    if not weighted:
+        want = su_mod.sketch_update_torch(start.clone(), params, hi, lo, v)
+        assert torch.equal(got, want)
+    else:
+        want = su_mod.sketch_update_torch(start.double(), params, hi, lo, v)
+        scale = _cell_scale(params, hi, lo, v, start)
+        err = (got.double() - want).abs()
+        assert bool((err <= 1e-5 * scale).all()), err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,l2c,q", [(16, 18, 40_000), (3, 6, 1000),
+                                        (1, 22, 7), (4, 8, 0)])
+def test_sketch_estimate_kernel_matches_plain(card, rows, l2c, q):
+    params = _params(rows, q)
+    hi, lo = _keys(q, q, universe=10 ** 9)
+    b, s = hashing.hashes(params, hi, lo, l2c)
+    table = torch.randn((rows, 1 << l2c), generator=torch.Generator(
+    ).manual_seed(q)) * 100
+    table[:, ::3] = 0.0                             # signed zeros come out
+    before = LAUNCHES["sketch_estimate_table"]
+    got = se_mod.sketch_estimate(table.to(card), b.to(card), s.to(card))
+    torch.cuda.synchronize()
+    assert LAUNCHES["sketch_estimate_table"] == before + (q > 0)
+    want = se_mod.sketch_estimate_torch(table, b, s)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(torch.signbit(got.cpu()), torch.signbit(want))
+
+
+@pytest.mark.cuda
+def test_sketch_module_and_ops_run_the_kernels(card):
+    """sketch.update / estimate and the three ops wrappers launch K6-K8
+    on CUDA tensors and agree with their CPU runs bit for bit."""
+    grid, pts = _hash_case(20_000, 4, 16, 1)
+    params = _params(8, 2)
+    sk0 = sketch.init(params, 12)
+    kh, kl = quantize.points_to_keys(grid, pts)
+    dev = sketch.init(params.to(card), 12)
+    LAUNCHES.clear()
+    sk = sketch.update_runs(dev, candidates.sorted_runs(kh.to(card),
+                                                        kl.to(card)))
+    est = sketch.estimate(sk, kh[:500].to(card), kl[:500].to(card))
+    fused = ops.sketch_update_fused(dev, kh.to(card), kl.to(card))
+    mxu = ops.sketch_estimate_mxu(fused, kh[:500].to(card), kl[:500].to(card))
+    hb, hs = ops.hash_points(params.to(card), grid, pts.to(card), 12)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"sketch_update_table": 2,
+                              "sketch_estimate_table": 2, "hash_points": 1}
+    assert float(dev.table.abs().sum()) == 0.0     # update copies
+    cpu = sketch.update(sk0, kh, kl)
+    assert torch.equal(sk.table.cpu(), cpu.table)
+    assert torch.equal(fused.table.cpu(), cpu.table)
+    want = sketch.estimate(cpu, kh[:500], kl[:500])
+    assert torch.equal(est.cpu(), want) and torch.equal(mxu.cpu(), want)
+    wb, ws = hashing.hashes(params, kh, kl, 12)
+    assert torch.equal(hb.cpu(), wb) and torch.equal(hs.cpu(), ws)
+
+
+@pytest.mark.cuda
+def test_sketch_kernel_wrappers_reject_bad_inputs(card):
+    params = _params(4, 0).to(card)
+    grid, pts = _hash_case(10, 3, 8, 0)
+    pts = pts.to(card)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        hp_mod.hash_points_cuda(params, grid, pts.cpu(), 8)
+    with pytest.raises(ValueError, match="float32"):
+        hp_mod.hash_points_cuda(params, grid, pts.double(), 8)
+    with pytest.raises(ValueError, match=r"\(N, 3\)"):
+        hp_mod.hash_points_cuda(params, grid, pts[:, :2].contiguous(), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        hp_mod.hash_points_cuda(params, grid, pts.T.contiguous().T, 8)
+    with pytest.raises(ValueError, match="hash params"):
+        hp_mod.hash_points_cuda(_params(4, 0), grid, pts, 8)
+    table = torch.zeros((4, 256), device=card)
+    k = torch.zeros(5, dtype=torch.int64, device=card)
+    v = torch.ones(5, device=card)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        su_mod.sketch_update_cuda(table.cpu(), params, k, k, v)
+    with pytest.raises(ValueError, match="float32"):
+        su_mod.sketch_update_cuda(table.double(), params, k, k, v)
+    with pytest.raises(ValueError, match="int64"):
+        su_mod.sketch_update_cuda(table, params, k.int(), k, v)
+    with pytest.raises(ValueError, match="power-of-two"):
+        su_mod.sketch_update_cuda(table[:, :100], params, k, k, v)
+    with pytest.raises(ValueError, match="need table"):
+        su_mod.sketch_update_cuda(table[:3], params, k, k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        su_mod.sketch_update_cuda(table, params, k, k,
+                                  torch.ones(10, device=card)[::2])
+    b = torch.zeros((4, 5), dtype=torch.int64, device=card)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        se_mod.sketch_estimate_cuda(table, b.cpu(), b)
+    with pytest.raises(ValueError, match="int64"):
+        se_mod.sketch_estimate_cuda(table, b.int(), b)
+    with pytest.raises(ValueError, match="need table"):
+        se_mod.sketch_estimate_cuda(table, b[:3], b[:3])

@@ -118,23 +118,41 @@ def test_config_has_the_reference_fields_less_kernel_mode():
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
-    """Streaming input (P11) and meshes (P12) raise; the approximate kNN
-    (P9, once raising here too) runs under both embedders."""
+    """Meshes (P12) raise; chunk-iterator input (P11, streaming ingest)
+    runs through run and sketch_stage to the one-shot's heavy hitters;
+    the approximate kNN (P9) runs under both embedders."""
     pts, _ = gaussian_mixture(500, MixtureSpec(dims=3), seed=1)
-    cfg = pipeline.SnsConfig(bins=4, rows=2, log2_cols=6, top_k=8)
+    # a pool of all 4**3 cells: the streaming reservoir stays exact
+    cfg = pipeline.SnsConfig(bins=4, rows=2, log2_cols=6, top_k=8,
+                             candidate_pool=64, ingest_chunk=64,
+                             ingest_superbatch=2)
     small = dict(umap_cfg=umap.UmapConfig(n_neighbors=3, n_epochs=1))
     cases = [
         (dataclasses.replace(cfg, embedder="tsne", embed_mesh=2), pts, {},
          "P12"),
         (dataclasses.replace(cfg, embed_mesh=2), pts, {}, "P12"),
         (cfg, pts, {"mesh": 2}, "P12"),
-        (cfg, iter([pts]), {}, "P11"),
+        (cfg, [pts], {"mesh": 2}, "P12"),
     ]
     for c, p, kw, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             pipeline.run(c, p, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="P11"):
-        pipeline.sketch_stage(cfg, iter([pts]), device="cpu")
+    with pytest.raises(NotImplementedError, match="P12"):
+        pipeline.run_streaming(cfg, [pts], shard_fn=lambda i, b: b,
+                               device="cpu")
+    grid, hh = pipeline.sketch_stage(cfg, pts, device="cpu")
+    for source in ([pts[:300], pts[300:]],
+                   lambda: iter([pts[:123], pts[123:]])):
+        g, h = pipeline.sketch_stage(cfg, source, device="cpu")
+        assert g == grid
+        for a, b in zip(h, hh):
+            assert torch.equal(a, b)
+        res = pipeline.run(cfg, source, device="cpu", **small)
+        assert res.grid == grid and torch.equal(res.hh.key_lo, hh.key_lo)
+        assert set(res.stage_seconds) == {"grid", "ingest", "extract",
+                                          "replicas", "embed"}
+        n = int(res.reps.mask.sum())
+        assert res.embedding.shape == (n, 2)
     for c, kw in [
             (dataclasses.replace(cfg, embedder="tsne", embed_backend="sparse",
                                  embed_knn_method="ann", embed_grid=16),
