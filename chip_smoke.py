@@ -8,7 +8,8 @@ Phases, each failing the run (non-zero exit) if it fails:
 1. build       — every CUDA kernel of the port, from the sources in this
                  checkout (one nvcc per source, all started together);
 2. check       — each kernel against its plain PyTorch version before
-                 anything large runs: K1 on a small CSR; K2/K3 at
+                 anything large runs: K1 on a small CSR and at every
+                 group width (mean rows 1-63, D 1-3); K2/K3 at
                  N = 100 003 on G = 128 and 1024 with points on the edge
                  cells; K5a/K5b at N = 6000 padded to 6144; K4 on random
                  tiles (window padding, self pairs, a half-empty last
@@ -48,7 +49,8 @@ Phases, each failing the run (non-zero exit) if it fails:
                  dedupe, the final G; asserts K4 = probes × stage-1 chunks
                  and K1 = K2 = K3 = 500 launches and recall ≥ 0.9 on 8192
                  sampled rows against their exact rows (``knn_query``
-                 against all N); then K4 at its shapes and a profile;
+                 against all N); then K4 and K3 (at the final G) at its
+                 shapes and a profile;
 8. stream      — path I: ``pipeline.run_streaming(CANCER, factory,
                  grid=None)`` over the same 26M points as host numpy
                  slices of 1 000 003: stage seconds (grid pass, ingest,
@@ -114,6 +116,13 @@ PATH_LAUNCHES = {}
 
 def log(*args):
     print(*args, flush=True)
+
+
+def launches_by_path(op: str) -> dict:
+    """{path tag: launches of ``op``} over the driven paths' runs that
+    launched it (each counted from 0 just before its run)."""
+    return {tag: ls.get(op, 0) for tag, ls in PATH_LAUNCHES.items()
+            if ls.get(op, 0)}
 
 
 def time_cuda(fn, iters: int, warmup: int = 3) -> float:
@@ -388,6 +397,21 @@ def phase_check(device):
                                 bounds.to(device))
     log(f"[check] segment_reduce small CSR (N=1000, E={e}): bit-exact on "
         f"integers; random max_abs_err {err:.3e} (2-D), {err1:.3e} (1-D)")
+    from repro_torch.kernels import segment_reduce as segred
+    for fan in (1, 3, 7, 15, 31, 63):               # every group width L
+        sizes = torch.randint(0, 2 * fan + 1, (3000,), generator=g)
+        sizes[::101] = 0
+        b = torch.cat([torch.zeros(1, dtype=torch.int64),
+                       sizes.cumsum(0)]).to(torch.int32)
+        e = int(b[-1])
+        errs = [check_segment_reduce(
+                    torch.randint(-1000, 1000, (e, d), generator=g).float()
+                    .to(device), torch.randn((e, d), generator=g).to(device),
+                    b.to(device)) for d in (1, 2, 3)]
+        log(f"[check] segment_reduce mean row {fan}, "
+            f"{segred.group_lanes(3000, e)} lanes a row, D 1/2/3: bit-exact "
+            f"on integers; random max_abs_err "
+            + "/".join(f"{x:.3e}" for x in errs))
     for grid in (128, 1024):
         e2, e3 = check_cic(*cic_inputs(device, CHECK_CIC_POINTS, grid, grid))
         log(f"[check] cic_splat / cic_gather at N={CHECK_CIC_POINTS}, "
@@ -609,7 +633,8 @@ def drive(tag, cfg, pts, warm, spec, device, expect, tsne_cfg=None,
     ``expect`` {op: launches} (or a function of the result giving it),
     finite KL and blob separation: min inter > 1.5 × max intra, or, with
     ``min_knn_purity``, that share of map neighbours from the same blob
-    (:func:`knn_purity`).  Returns (result, launches, wall seconds)."""
+    (:func:`knn_purity`).  Returns the result; the launches go to
+    ``PATH_LAUNCHES[tag]``."""
     import numpy as np
     import torch
     from repro_torch.core import pipeline
@@ -667,7 +692,7 @@ def drive(tag, cfg, pts, warm, spec, device, expect, tsne_cfg=None,
         purity >= min_knn_purity
     if not (n_blobs == spec.n_clusters and ok):
         raise AssertionError(f"[{tag}] blobs do not separate")
-    return res, launches, wall
+    return res
 
 
 def phase_main(device, pts, warm, spec):
@@ -675,13 +700,12 @@ def phase_main(device, pts, warm, spec):
     from repro_torch.core import pipeline
     cfg = dataclasses.replace(CANCER, embed_knn_method="exact")
     n_epochs = pipeline.resolve_embed_cfg(cfg).n_epochs
-    res, launches, _ = drive("main", cfg, pts, warm, spec, device,
-                             {"segment_reduce": 2 * n_epochs,
-                              **ONE_SHOT_SKETCH})
-    return cfg, res, launches
+    res = drive("main", cfg, pts, warm, spec, device,
+                {"segment_reduce": 2 * n_epochs, **ONE_SHOT_SKETCH})
+    return cfg, res
 
 
-def phase_kernels(cfg, res, launches):
+def phase_kernels(cfg, res):
     """K1 at the main path's shapes; returns its kernels-line entry."""
     import torch
     from repro_torch.core import coo, neighbors, pipeline, umap
@@ -725,7 +749,6 @@ def phase_kernels(cfg, res, launches):
     return {"name": "segment_reduce", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
             "replaces": "src/repro/kernels/segment_reduce.py:49",
-            "launches": launches.get("segment_reduce", 0),
             "max_abs_err": max(s["max_abs_err"] for s in sides.values()),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"), "bound_by": "bytes",
@@ -751,7 +774,9 @@ def segment_reduce_row(tag, vals_int, vals, bounds, iters=100):
     nbytes = e * d * 4 + (n + 1) * 4 + n * d * 4
     row["bound_ms"], row["bound_by"] = op_bound_ms(nbytes)
     row["max_abs_err"] = err
-    log_row(tag, row, f"; {nbytes / 1e6:.2f} MB")
+    row["lanes"] = segred.group_lanes(n, e)
+    log_row(tag, row, f"; {nbytes / 1e6:.2f} MB; N {n}, E {e}, D {d}, "
+            f"{row['lanes']} lanes a row")
     return row
 
 
@@ -830,7 +855,6 @@ def phase_tsne_sparse(device, pts, warm, spec):
     then K1, K2 and K3 at its shapes.  Returns the K2 and K3 entries and
     K1's row at these shapes."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs.sns_paper import CANCER_100K
     from repro_torch.core import ann, neighbors, pipeline, tsne
     from repro_torch.kernels import cic
@@ -838,7 +862,7 @@ def phase_tsne_sparse(device, pts, warm, spec):
     cfg = dataclasses.replace(CANCER_100K, embed_knn_method="exact")
     ecfg = pipeline.resolve_embed_cfg(cfg)
     n_iter = ecfg.n_iter
-    res, launches, _ = drive(
+    res = drive(
         "tsne-sparse", cfg, pts, warm, spec, device,
         {"segment_reduce": n_iter, "cic_splat": n_iter, "cic_gather": n_iter,
          **ONE_SHOT_SKETCH},
@@ -884,14 +908,9 @@ def phase_tsne_sparse(device, pts, warm, spec):
                        device=device).float()
     k1 = segment_reduce_row("segment_reduce tsne-sparse", vi, vals,
                             sp.bounds, iters=20)
-    k1["launches"] = launches.get("segment_reduce", 0)
     del diff, num, vals, vi
 
-    i0, f, h = tsne._cic_weights(y, g)
-    masses = torch.stack([torch.ones_like(y[:, 0]), y[:, 0], y[:, 1]], 1)
-    grid = cic.cic_splat_cuda(i0, f, masses, g)
-    conv1, conv0 = tsne._grid_convolve(grid, g, h)
-    fields = torch.cat([conv1, conv0[None]]).contiguous()
+    i0, f, masses, grid, fields = path_fields(y, g)
     e2, e3 = check_cic(i0, f, masses, fields)
     occ = torch.bincount(i0[:, 0].long() * g + i0[:, 1].long(),
                          minlength=g * g)
@@ -916,24 +935,8 @@ def phase_tsne_sparse(device, pts, warm, spec):
     k2["max_abs_err"] = e2
     log_row("cic_splat", k2, "; library = one index_add_ over the "
             "flattened grid with precomputed corner indices")
-    u = i0.float() + f
-    grid_xy = (torch.stack([u[:, 1], u[:, 0]], 1) * (2.0 / (g - 1)) - 1.0
-               )[None, None]
-
-    def library_gather():
-        return F.grid_sample(fields[None], grid_xy, mode="bilinear",
-                             align_corners=True)
-    lib_err = (library_gather()[0, :, 0].T - cic.cic_gather_cuda(
-        fields, i0, f)).abs().max().item()
-    k3 = timings({"ms": lambda: cic.cic_gather_cuda(fields, i0, f),
-                  "plain_ms": lambda: cic.cic_gather_torch(fields, i0, f),
-                  "library_ms": library_gather}, 100)
-    k3["bound_ms"], k3["bound_by"] = op_bound_ms(n * (8 + 8 + 16)
-                                                 + 4 * g * g * 4)
-    k3["max_abs_err"] = e3
-    log_row("cic_gather", k3, f"; library = F.grid_sample (bilinear, "
-            f"align_corners), {lib_err:.3e} from the kernel")
-    del grid, conv1, conv0, fields, lib_idx, lib_val, grid_xy
+    k3 = cic_gather_row("cic_gather", fields, i0, f, e3)
+    del grid, fields, lib_idx, lib_val
     tsne_step_profile(f"tSNE sparse iteration (N {n}, E {e}, G {g})", y,
                       lambda yy: tsne.sparse_grad(yy, sp, 1.0, g), ecfg)
 
@@ -941,9 +944,55 @@ def phase_tsne_sparse(device, pts, warm, spec):
         return dict({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/cic.cu",
                      "replaces": f"src/repro/kernels/cic.py:{line}",
-                     "launches": launches.get(name, 0),
                      "shapes": {"n": n, "g": g}}, **row)
     return entry("cic_splat", k2, 57), entry("cic_gather", k3, 69), k1
+
+
+def path_fields(y, g):
+    """One FFT-repulsion pass's K2 and K3 operands at an embedding: cells,
+    offsets, masses, the splatted grid and the fields as
+    ``tsne.fft_repulsion`` hands them to K3 (a (4, G, G) view of a
+    channels-last (G, G, 4) tensor)."""
+    import torch
+    from repro_torch.core import tsne
+    from repro_torch.kernels import cic
+    i0, f, h = tsne._cic_weights(y, g)
+    masses = torch.stack([torch.ones_like(y[:, 0]), y[:, 0], y[:, 1]], 1)
+    grid = cic.cic_splat_cuda(i0, f, masses, g)
+    conv1, conv0 = tsne._grid_convolve(grid, g, h)
+    fields = torch.stack([conv1[0], conv1[1], conv1[2], conv0], -1
+                         ).permute(2, 0, 1)
+    return i0, f, masses, grid, fields
+
+
+def cic_gather_row(tag, fields, i0, f, err):
+    """K3 timed at a path's shapes on the path's own layout, beside its
+    plain version, ``F.grid_sample`` (bilinear, align_corners, on a
+    contiguous (1, C, G, G) copy: its own layout) and the byte bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import cic
+    g, n = fields.shape[-1], i0.shape[0]
+    nchw = fields.contiguous()[None]
+    u = i0.float() + f
+    grid_xy = (torch.stack([u[:, 1], u[:, 0]], 1) * (2.0 / (g - 1)) - 1.0
+               )[None, None]
+
+    def library_gather():
+        return F.grid_sample(nchw, grid_xy, mode="bilinear",
+                             align_corners=True)
+    lib_err = (library_gather()[0, :, 0].T - cic.cic_gather_cuda(
+        fields, i0, f)).abs().max().item()
+    row = timings({"ms": lambda: cic.cic_gather_cuda(fields, i0, f),
+                   "plain_ms": lambda: cic.cic_gather_torch(fields, i0, f),
+                   "library_ms": library_gather}, 100)
+    row["bound_ms"], row["bound_by"] = op_bound_ms(n * (8 + 8 + 16)
+                                                   + 4 * g * g * 4)
+    row["max_abs_err"] = err
+    row["shapes"] = {"n": n, "g": g}
+    log_row(tag, row, f"; N {n}, G {g}; library = F.grid_sample "
+            f"(bilinear, align_corners), {lib_err:.3e} from the kernel")
+    return row
 
 
 def positive_pairs(xp, sp, n, rows=2048):
@@ -978,10 +1027,10 @@ def phase_tsne_exact(device, pts, warm, spec):
                               embed_knn_method="exact")
     ecfg = pipeline.resolve_embed_cfg(cfg)
     n_iter = ecfg.n_iter
-    res, launches, _ = drive("tsne-exact", cfg, pts, warm, spec, device,
-                             {"tsne_z": n_iter, "tsne_forces": n_iter,
-                              **ONE_SHOT_SKETCH},
-                             warm_tsne_cfg=tsne.TsneConfig(n_iter=20))
+    res = drive("tsne-exact", cfg, pts, warm, spec, device,
+                {"tsne_z": n_iter, "tsne_forces": n_iter,
+                 **ONE_SHOT_SKETCH},
+                warm_tsne_cfg=tsne.TsneConfig(n_iter=20))
     x, w = res.reps.points[res.reps.mask], res.rep_weight
     n = x.shape[0]
     torch.cuda.synchronize()
@@ -1032,7 +1081,6 @@ def phase_tsne_exact(device, pts, warm, spec):
         return dict({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/tsne_forces.cu",
                      "replaces": f"src/repro/kernels/tsne_forces.py:{line}",
-                     "launches": launches.get(name, 0),
                      "shapes": {"n": n, "n_pad": npad, "dh": dh,
                                 "dims": dims, "pairs": pairs,
                                 "pairs_p_positive": pos}}, **row)
@@ -1080,7 +1128,7 @@ def phase_ann(device, pts, warm, spec):
         return grids[-1]
     tsne._grid_for_span = spy
     try:
-        res, launches, _ = drive(
+        res = drive(
             "ann", cfg, pts, warm, spec, device, expect, tsne_cfg=tcfg,
             warm_tsne_cfg=tsne.TsneConfig(n_iter=20), min_knn_purity=0.95)
     finally:
@@ -1149,15 +1197,18 @@ def phase_ann(device, pts, warm, spec):
             f"library = torch.baddbmm(|q|²+|c|² precomputed (T, B, C), q, "
             f"cᵀ, alpha=-2): the same Gram form, no clamp, no masks")
     del args, qx, qid, cx, cid, base, cxt
+    i0, f, masses, grid, fields = path_fields(res.embedding, g_final)
+    _, e3 = check_cic(i0, f, masses, fields)
+    k3 = cic_gather_row("cic_gather ann", fields, i0, f, e3)
+    del i0, f, masses, grid, fields
     tsne_step_profile(f"tSNE sparse iteration on the ANN graph (N {n}, E "
                       f"{e}, G {g_final})", res.embedding,
                       lambda yy: tsne.sparse_grad(yy, sp, 1.0, g_final), ecfg)
     return dict({"name": "knn_dist_tiles", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/knn_tile.cu",
                  "replaces": "src/repro/kernels/knn_tile.py:36",
-                 "launches": launches.get("knn_dist_tiles", 0),
                  "shapes": {"n": n, "k": k, "t": t, "b": b, "c": c, "d": d,
-                            "probes": acfg.probes}}, **k4)
+                            "probes": acfg.probes}}, **k4), k3
 
 
 class IngestSpy:
@@ -1226,7 +1277,7 @@ def phase_stream(device, pts, pts_np, warm, spec):
     def warm_factory():
         return iter([warm])
     with IngestSpy() as spy:
-        res, launches, wall = drive(
+        res = drive(
             "stream", cfg, factory, warm_factory, spec, device,
             {"sketch_update_table": folded, "sketch_estimate_table": 1,
              "segment_reduce": 2 * n_epochs})
@@ -1430,26 +1481,17 @@ def phase_sketch_kernels(device, pts, cfg, state, runs):
             f"{nbytes / 1e6:.2f} MB; bit-exact; library = torch.gather "
             f"times the signs")
 
-    def by_path(op):
-        return {tag: ls.get(op, 0) for tag, ls in PATH_LAUNCHES.items()
-                if ls.get(op, 0)}
-
-    def entry(name, row, line, path, launches):
+    def entry(name, row, line, path):
         return dict({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/sketch.cu",
-                     "replaces": f"src/repro/kernels/{path}:{line}",
-                     "launches": sum(launches.values()),
-                     "launches_by_path": launches}, **row)
+                     "replaces": f"src/repro/kernels/{path}:{line}"}, **row)
     # the top-level numbers are one chunk's: path I launches K7 once a
     # chunk, the one-shot paths once on all their runs (per_call)
     k7 = dict(sides["chunk"], max_abs_err=max(
         s["max_abs_err"] for s in sides.values()), per_call=sides)
-    return (entry("hash_points", k6, 28, "hash_points.py",
-                  by_path("hash_points")),
-            entry("sketch_update_table", k7, 38, "sketch_update.py",
-                  by_path("sketch_update_table")),
-            entry("sketch_estimate_table", k8, 27, "sketch_estimate.py",
-                  by_path("sketch_estimate_table")))
+    return (entry("hash_points", k6, 28, "hash_points.py"),
+            entry("sketch_update_table", k7, 38, "sketch_update.py"),
+            entry("sketch_estimate_table", k8, 27, "sketch_estimate.py"))
 
 
 def phase_parity(cfg, device, stream_peak, stream_points):
@@ -1556,24 +1598,26 @@ def main(argv=None) -> int:
         log(f"[build] {name}:\n{rep.strip()}")
     phase_check(device)
     pts, pts_np, warm, spec = make_points(device, args.points)
-    cfg, res, launches = phase_main(device, pts, warm, spec)
-    k1 = phase_kernels(cfg, res, launches)
+    cfg, res = phase_main(device, pts, warm, spec)
+    k1 = phase_kernels(cfg, res)
     del res
     k2, k3, k1_sparse = phase_tsne_sparse(device, pts, warm, spec)
-    k1["launches"] += k1_sparse["launches"]
-    k1["launches_by_path"] = {"umap": launches.get("segment_reduce", 0),
-                              "tsne_sparse": k1_sparse["launches"]}
     k1["per_call"]["tsne_sparse"] = k1_sparse
     k5a, k5b = phase_tsne_exact(device, pts, warm, spec)
-    k4 = phase_ann(device, pts, warm, spec)
+    k4, k3_ann = phase_ann(device, pts, warm, spec)
+    k3["per_call"] = {"tsne_sparse": dict(k3), "ann": k3_ann}
     cfg_i, state, runs, peak = phase_stream(device, pts, pts_np, warm, spec)
     phase_ops(device, pts, cfg_i)
     k6, k7, k8 = phase_sketch_kernels(device, pts, cfg_i, state, runs)
     del pts, pts_np, state, runs
     phase_parity(cfg, device, peak, args.points)
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
+    kernels = [k1, k2, k3, k4, k5a, k5b, k6, k7, k8]
+    for k in kernels:
+        k["launches_by_path"] = launches_by_path(k["name"])
+        k["launches"] = sum(k["launches_by_path"].values())
     log(nvidia_smi_line())
-    log(json.dumps({"kernels": [k1, k2, k3, k4, k5a, k5b, k6, k7, k8]}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,11 +10,13 @@
 Entry points (:func:`run`, :func:`run_streaming`, :func:`sketch_stage`,
 :func:`sketch_stage_streaming`, :func:`embed_stage`) run on the card
 unless the caller asks for another device: ``device=None`` means
-``cuda`` and raises where there is none.  Random draws come from
-``torch.Generator``s seeded from ``cfg.seed`` on the run's device (hash
-parameters from ``seed``; jitter, the embedder's init and UMAP's
-negatives from ``seed + 1``); :class:`Draws` takes any of them from
-outside instead.
+``cuda`` and raises where there is none.  The replica jitter is the
+reference's own threefry draw (``core.prng``) under the key
+``split(key(seed + 1))[0]``, keyed by cell.  The other random draws come
+from ``torch.Generator``s seeded from ``cfg.seed`` on the run's device
+(hash parameters from ``seed``; the embedder's init and UMAP's negatives
+from ``seed + 1``).  :class:`Draws` takes any of them from outside
+instead.
 
 The approximate kNN build (``core.ann``) draws from its own generators
 seeded from ``AnnConfig.seed``; ``Draws.ann`` takes them from outside.
@@ -39,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import candidates as cand_mod
-from repro_torch.core import hashing, quantize, replicas
+from repro_torch.core import hashing, prng, quantize, replicas
 from repro_torch.core import heavy_hitters as hh_mod
 from repro_torch.core import sketch as sketch_mod
 from repro_torch.core import stream as stream_mod
@@ -371,9 +373,10 @@ def _embed_stage_impl(cfg: SnsConfig, grid: GridSpec, hh: HeavyHitters,
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.seed + 1)
     hh = HeavyHitters(*[t.to(dev) for t in hh])
+    krep = prng.split(prng.key(cfg.seed + 1, device=dev))[0]
     reps = replicas.make_representatives(
         grid, hh, scheme=cfg.replica_scheme, max_replicas=cfg.max_replicas,
-        jitter_frac=cfg.jitter_frac, generator=gen, jitter=draws.jitter)
+        jitter_frac=cfg.jitter_frac, key=krep, jitter=draws.jitter)
     pts, w, ids = replicas.compact(reps)
     _sync(dev)
     t1 = time.perf_counter()

@@ -8,9 +8,10 @@ quarter of the cell size).  Three replica schemes:
 * ``"count"``   — 1 + ⌊log₂(f / f_min)⌋ replicas for count f.
 
 Static shapes: K·max_replicas slots, slot (i, j) live iff j < n_i.  The
-jitter is drawn from a ``torch.Generator`` (or passed in as ``jitter=``);
-the reference keys its threefry draws by cell, which the port does not
-reproduce (carry.py feeds the reference's draws in for parity).
+jitter is keyed by cell, not by HH row, as in the reference: cell
+(hi, lo) draws ``uniform(fold_in(fold_in(key, hi), lo))`` with the
+threefry of ``core.prng``, bit for bit the reference's draw, so a
+reshuffled ranking leaves every cell's points where they were.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core import quantize
+from repro_torch.core import prng, quantize
 from repro_torch.core.heavy_hitters import HeavyHitters
 from repro_torch.core.quantize import GridSpec
 
@@ -60,14 +61,15 @@ def replica_counts(hh: HeavyHitters, scheme: str, max_replicas: int
 def make_representatives(grid: GridSpec, hh: HeavyHitters,
                          scheme: str = "count", max_replicas: int = 8,
                          jitter_frac: float = 0.25, *,
-                         generator: Optional[torch.Generator] = None,
+                         key: Optional[prng.Key] = None,
                          jitter: Optional[torch.Tensor] = None
                          ) -> Representatives:
     """HH cells → jittered weighted points.
 
     ``jitter`` is an optional (K, max_replicas, D) array of offsets in
-    cell units, uniform in [-jitter_frac, jitter_frac]; without it they
-    are drawn from ``generator``."""
+    cell units, uniform in [-jitter_frac, jitter_frac]; without it each
+    cell draws its own from the threefry ``key`` (``core.prng``, on the
+    HH tensors' device)."""
     k = hh.key_hi.shape[0]
     dev = hh.key_hi.device
     coords = quantize.unpack(grid, (hh.key_hi, hh.key_lo))    # (K, D)
@@ -75,9 +77,12 @@ def make_representatives(grid: GridSpec, hh: HeavyHitters,
     n = replica_counts(hh, scheme, max_replicas)              # (K,)
     cell = torch.as_tensor(grid.cell_size, device=dev)        # (D,)
     if jitter is None:
-        u = torch.rand((k, max_replicas, grid.dims), generator=generator,
-                       device=dev)
-        jitter = u * (2.0 * jitter_frac) - jitter_frac
+        if key is None:
+            raise ValueError("make_representatives needs a threefry key "
+                             "or the jitter")
+        cell_key = prng.fold_in(prng.fold_in(key, hh.key_hi), hh.key_lo)
+        jitter = prng.uniform(cell_key, (max_replicas, grid.dims),
+                              -jitter_frac, jitter_frac)
     else:
         jitter = torch.as_tensor(jitter, dtype=torch.float32, device=dev)
         if jitter.shape != (k, max_replicas, grid.dims):

@@ -337,7 +337,9 @@ def fft_repulsion(y: torch.Tensor, grid_size: int = 128
     masses = torch.stack([torch.ones_like(y[:, 0]), y[:, 0], y[:, 1]], 1)
     grid = cic.cic_splat(i0, f, masses, g)
     conv1, conv0 = _grid_convolve(grid, g, h)
-    got = cic.cic_gather(torch.cat([conv1, conv0[None]]), i0, f)   # (N, 4)
+    # channels-last (G, G, 4), the layout K3 reads, as a (4, G, G) view
+    fields = torch.stack([conv1[0], conv1[1], conv1[2], conv0], -1)
+    got = cic.cic_gather(fields.permute(2, 0, 1), i0, f)            # (N, 4)
     z = (got[:, 3].sum() - n).clamp(min=1e-12)
     return got[:, :1] * y - got[:, 1:3], z
 

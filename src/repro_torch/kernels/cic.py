@@ -11,7 +11,9 @@ grid (C, G, G); ``fields`` (C, G, G) → (N, C).
 
 * :func:`cic_splat_cuda` / :func:`cic_gather_cuda` launch
   ``csrc/cic.cu`` (one thread per point; the splat adds with float
-  atomics, the gather is deterministic).  CUDA tensors only.
+  atomics, the gather is deterministic and reads the fields channels-
+  last, (G, G, C), one vector load a corner at C = 4).  CUDA tensors
+  only.
 * :func:`cic_splat_torch` / :func:`cic_gather_torch` are the plain
   versions, ``cic_splat_xla`` / ``cic_gather_xla``'s arithmetic, in the
   dtype of ``vals`` / ``fields`` (float64 for the card's checks).
@@ -80,18 +82,26 @@ def cic_splat_cuda(i0: torch.Tensor, f: torch.Tensor, vals: torch.Tensor,
 def cic_gather_cuda(fields: torch.Tensor, i0: torch.Tensor, f: torch.Tensor
                     ) -> torch.Tensor:
     """Bilinear read of (C, G, G) fields at N points, (N, C), by the
-    hand-written kernel."""
-    _check_points("cic_gather", i0, f, fields)
+    hand-written kernel.  The kernel reads the fields channels-last:
+    ``fields.permute(1, 2, 0)`` is used as it is when that is contiguous
+    (``tsne.fft_repulsion`` builds its fields so), and copied once
+    otherwise."""
     if fields.dim() != 3 or fields.shape[1] != fields.shape[2] \
             or fields.shape[1] < 2:
         raise ValueError(f"cic_gather: need fields (C, G, G) with G >= 2; "
                          f"got {tuple(fields.shape)}")
+    cl = fields.permute(1, 2, 0).contiguous()               # (G, G, C)
+    _check_points("cic_gather", i0, f, cl)
     c, g = fields.shape[0], fields.shape[1]
+    if i0.data_ptr() % 8 or f.data_ptr() % 8 or (
+            c == 4 and cl.data_ptr() % 16):
+        raise ValueError("cic_gather: i0 and f must be 8-byte aligned and "
+                         "4-channel fields 16-byte aligned (vector loads)")
     n = i0.shape[0]
     out = torch.empty((n, c), dtype=torch.float32, device=fields.device)
     if n and c:
         fn = _build.entry("cic", "cic_gather_f32", _SIG)
-        _build.launch("cic_gather", fn, fields.device, fields.data_ptr(),
+        _build.launch("cic_gather", fn, fields.device, cl.data_ptr(),
                       i0.data_ptr(), f.data_ptr(), n, c, g, out.data_ptr())
     return out
 

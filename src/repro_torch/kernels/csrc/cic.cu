@@ -30,15 +30,21 @@
 // the points fall in 10 912 of 16 384 cells, up to 117 in one, and the
 // atomics on a hot cell serialise.
 //
-// K3 design: one thread per point reads 4 corners for each of the C fields
-// (L2-resident: 256 KB at G = 128, C = 4) and writes its C outputs.  The
+// K3 design: one thread per point reads its cell and offsets as one int2
+// and one float2, then the four corners of the fields, which it takes in
+// an interleaved (G, G, C) layout: at C = 4 (the main path: conv1's three
+// channels and conv0) each corner is one float4 load, four vector gathers
+// a point instead of 16 scalar ones, and the point's C outputs are one
+// float4 store; another C runs a per-channel loop over the same layout.
+// The fields are L2-resident (256 KB at G = 128, 16 MB at G = 1024).  The
 // products and sums are rounded one by one (__fmul_rn/__fadd_rn, no fused
 // multiply-add) in the plain version's order, starting from 0, so the
 // result equals the float32 plain version bit for bit.  Deterministic.
 // Bound: memory, N*(8 + 8 + 4C) bytes plus the fields' C*G*G*4: 2.06 us
-// at path S's shapes (C = 4); the kernel took 8.44 us and F.grid_sample
-// 7.00 us (chip_smoke, same card).  Its C outputs are C scalar stores a
-// thread, strided by C; one vector store per point is the next step.
+// at path S's shapes (C = 4).  The design this replaces (C separate
+// (G, G) planes, 16 scalar gathers and C strided scalar stores a point)
+// took 8.28 us there and F.grid_sample 7.11 us (chip_smoke, NVIDIA H100
+// 80GB HBM3, 700.00 W); PERF.md keeps this design's times beside them.
 //
 // Contract: i0 in [0, G-2] (tsne._cic_weights clips to it).  A point
 // outside it is skipped (splat) or reads as 0 (gather) instead of
@@ -55,14 +61,9 @@ struct Corners {
   bool ok;
 };
 
-__device__ __forceinline__ Corners corners(const int* __restrict__ i0,
-                                           const float* __restrict__ f,
-                                           long long p, int g) {
+__device__ __forceinline__ Corners corners(int ix, int iy, float fx,
+                                           float fy, int g) {
   Corners k;
-  const int ix = i0[2 * p];
-  const int iy = i0[2 * p + 1];
-  const float fx = f[2 * p];
-  const float fy = f[2 * p + 1];
   k.ok = ix >= 0 && ix <= g - 2 && iy >= 0 && iy <= g - 2;
   k.base = static_cast<long long>(ix) * g + iy;
   const float ox = __fsub_rn(1.0f, fx);
@@ -74,6 +75,18 @@ __device__ __forceinline__ Corners corners(const int* __restrict__ i0,
   return k;
 }
 
+// One channel's corner sum in the plain version's order, each product and
+// sum rounded on its own.
+__device__ __forceinline__ float bilinear(const Corners& k, float v00,
+                                          float v01, float v10, float v11) {
+  float acc = 0.0f;
+  acc = __fadd_rn(acc, __fmul_rn(k.w00, v00));
+  acc = __fadd_rn(acc, __fmul_rn(k.w01, v01));
+  acc = __fadd_rn(acc, __fmul_rn(k.w10, v10));
+  acc = __fadd_rn(acc, __fmul_rn(k.w11, v11));
+  return acc;
+}
+
 __global__ void __launch_bounds__(kThreads)
 cic_splat_kernel(const int* __restrict__ i0, const float* __restrict__ f,
                  const float* __restrict__ vals, long long n, int c, int g,
@@ -81,7 +94,8 @@ cic_splat_kernel(const int* __restrict__ i0, const float* __restrict__ f,
   const long long p = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
   if (p >= n) return;
-  const Corners k = corners(i0, f, p, g);
+  const Corners k = corners(i0[2 * p], i0[2 * p + 1], f[2 * p], f[2 * p + 1],
+                            g);
   if (!k.ok) return;
   const long long gg = static_cast<long long>(g) * g;
   for (int ch = 0; ch < c; ++ch) {
@@ -94,6 +108,9 @@ cic_splat_kernel(const int* __restrict__ i0, const float* __restrict__ f,
   }
 }
 
+// fields (g, g, c) interleaved; C = 4 fixed (float4 corners and store)
+// or C = 0 (any c, one channel at a time)
+template <int C>
 __global__ void __launch_bounds__(kThreads)
 cic_gather_kernel(const float* __restrict__ fields,
                   const int* __restrict__ i0, const float* __restrict__ f,
@@ -101,18 +118,31 @@ cic_gather_kernel(const float* __restrict__ fields,
   const long long p = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
   if (p >= n) return;
-  const Corners k = corners(i0, f, p, g);
-  const long long gg = static_cast<long long>(g) * g;
-  for (int ch = 0; ch < c; ++ch) {
-    float acc = 0.0f;
+  const int2 cell = reinterpret_cast<const int2*>(i0)[p];
+  const float2 off = reinterpret_cast<const float2*>(f)[p];
+  const Corners k = corners(cell.x, cell.y, off.x, off.y, g);
+  if constexpr (C == 4) {
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (k.ok) {
-      const float* fl = fields + ch * gg + k.base;
-      acc = __fadd_rn(acc, __fmul_rn(k.w00, fl[0]));
-      acc = __fadd_rn(acc, __fmul_rn(k.w01, fl[1]));
-      acc = __fadd_rn(acc, __fmul_rn(k.w10, fl[g]));
-      acc = __fadd_rn(acc, __fmul_rn(k.w11, fl[g + 1]));
+      const float4* fl = reinterpret_cast<const float4*>(fields) + k.base;
+      const float4 v00 = fl[0];
+      const float4 v01 = fl[1];
+      const float4 v10 = fl[g];
+      const float4 v11 = fl[g + 1];
+      acc.x = bilinear(k, v00.x, v01.x, v10.x, v11.x);
+      acc.y = bilinear(k, v00.y, v01.y, v10.y, v11.y);
+      acc.z = bilinear(k, v00.z, v01.z, v10.z, v11.z);
+      acc.w = bilinear(k, v00.w, v01.w, v10.w, v11.w);
     }
-    out[p * c + ch] = acc;
+    reinterpret_cast<float4*>(out)[p] = acc;
+  } else {
+    const float* fl = fields + k.base * c;
+    const long long row = static_cast<long long>(g) * c;
+    for (int ch = 0; ch < c; ++ch) {
+      out[p * c + ch] = k.ok ? bilinear(k, fl[ch], fl[c + ch],
+                                        fl[row + ch], fl[row + c + ch])
+                             : 0.0f;
+    }
   }
 }
 
@@ -137,16 +167,24 @@ extern "C" int cic_splat_f32(const void* i0, const void* f, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
-// fields (c, g, g) fp32, i0/f as above; out (n, c) fp32.  Launches on
-// `stream` and returns cudaGetLastError().
+// fields (g, g, c) fp32 interleaved (16-byte aligned at c = 4), i0/f as
+// above (8-byte aligned); out (n, c) fp32.  Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int cic_gather_f32(const void* fields, const void* i0,
                               const void* f, long long n, long long c,
                               long long g, void* out, void* stream) {
   if (n <= 0 || c <= 0) return 0;
-  cic_gather_kernel<<<blocks_for(n), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(fields), static_cast<const int*>(i0),
-      static_cast<const float*>(f), n, static_cast<int>(c),
-      static_cast<int>(g), static_cast<float*>(out));
+  const float* fl = static_cast<const float*>(fields);
+  const int* ip = static_cast<const int*>(i0);
+  const float* fp = static_cast<const float*>(f);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c == 4) {
+    cic_gather_kernel<4><<<blocks_for(n), kThreads, 0, s>>>(
+        fl, ip, fp, n, 4, static_cast<int>(g), o);
+  } else {
+    cic_gather_kernel<0><<<blocks_for(n), kThreads, 0, s>>>(
+        fl, ip, fp, n, static_cast<int>(c), static_cast<int>(g), o);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,10 +4,11 @@
 per-edge payloads (E,) or (E, D); the two reductions of every UMAP epoch
 (``umap.epoch_delta``) run through here.
 
-* :func:`segment_reduce_cuda` launches ``csrc/segment_reduce.cu`` (one
-  warp per row, fp32 accumulation, deterministic; the source note says
-  what bounds it).  It takes CUDA tensors only and raises on anything
-  else.
+* :func:`segment_reduce_cuda` launches ``csrc/segment_reduce.cu``: a
+  group of L lanes per row (L from :func:`group_lanes`, the shapes
+  alone), each edge's payload row read by one vector load, fp32
+  accumulation, deterministic; the source note says what bounds it.  It
+  takes CUDA tensors only and raises on anything else.
 * :func:`segment_reduce_torch` is the plain version: the reference's
   cumsum difference (``repro.core.coo.segment_reduce``, the ``xla``
   tier).  ``coo.segment_reduce`` reaches it for CPU tensors only.
@@ -25,8 +26,16 @@ import torch
 
 from repro_torch.kernels import _build
 
-_C_SIGNATURE = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+_C_SIGNATURE = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
                 + [ctypes.c_void_p])
+
+
+def group_lanes(n_rows: int, n_edges: int) -> int:
+    """The kernel's lanes per row: the smallest power of two >= E / 2N,
+    at most a warp (32), so a mean row takes about two strides of its
+    group.  From the shapes alone: choosing it waits on nothing."""
+    want = -(-n_edges // (2 * max(n_rows, 1)))
+    return min(32, 1 << max(want - 1, 0).bit_length())
 
 
 def _check(vals: torch.Tensor, bounds: torch.Tensor) -> None:
@@ -45,6 +54,9 @@ def _check(vals: torch.Tensor, bounds: torch.Tensor) -> None:
                          f"{tuple(vals.shape)} and {tuple(bounds.shape)}")
     if not (vals.is_contiguous() and bounds.is_contiguous()):
         raise ValueError("vals and bounds must be contiguous")
+    if vals.dim() == 2 and vals.shape[1] == 2 and vals.data_ptr() % 8:
+        raise ValueError("vals (E, 2) must be 8-byte aligned: the kernel "
+                         "reads each edge as one float2")
 
 
 def segment_reduce_cuda(vals: torch.Tensor, bounds: torch.Tensor
@@ -60,7 +72,8 @@ def segment_reduce_cuda(vals: torch.Tensor, bounds: torch.Tensor
         fn = _build.entry("segment_reduce", "segment_reduce_f32",
                           _C_SIGNATURE)
         _build.launch("segment_reduce", fn, vals.device, v.data_ptr(),
-                      bounds.data_ptr(), out.data_ptr(), n, d)
+                      bounds.data_ptr(), out.data_ptr(), n, d,
+                      group_lanes(n, v.shape[0]))
     return out[:, 0] if vals.dim() == 1 else out
 
 

@@ -17,6 +17,37 @@ def hash_params(seed: int, rows: int):
             ref_hashing.make_params(jax.random.key(seed), rows)]
 
 
+def hh_case(seed: int, k: int = 200, dims: int = 4, bins: int = 8):
+    """A heavy-hitter set in both packages' types: K random cells of a
+    random grid (dims·log2(bins) key bits: 64 fill both limbs), integer
+    counts with powers-of-two ratios (exact log2 boundaries) and ties,
+    sorted descending, and a masked tail.  Returns (reference grid,
+    reference HH, port grid, port HH)."""
+    import torch
+    from repro.core import quantize as ref_quantize
+    from repro.core.heavy_hitters import HeavyHitters as RefHH
+    from repro_torch.core import quantize, u64
+    from repro_torch.core.heavy_hitters import HeavyHitters
+
+    rng = np.random.default_rng(seed)
+    grid = ref_quantize.GridSpec(dims=dims, bins=bins,
+                                 lo=rng.uniform(-1, 0, dims),
+                                 hi=rng.uniform(1, 2, dims))
+    coords = rng.integers(0, bins, size=(k, dims)).astype(np.uint32)
+    hi, lo = (np.asarray(a) for a in ref_quantize.pack(grid,
+                                                       jnp.asarray(coords)))
+    count = np.sort(rng.choice([1., 2., 3., 4., 7., 8., 16., 64., 300.],
+                               size=k))[::-1].astype(np.float32)
+    mask = np.arange(k) < k - 13
+    count = np.where(mask, count, 0.0).astype(np.float32)
+    ref = RefHH(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(count),
+                jnp.asarray(mask))
+    port = HeavyHitters(u64.from_numpy(hi), u64.from_numpy(lo),
+                        torch.from_numpy(count), torch.from_numpy(mask))
+    tgrid = quantize.GridSpec(dims=dims, bins=bins, lo=grid.lo, hi=grid.hi)
+    return grid, ref, tgrid, port
+
+
 def replica_jitter(seed: int, key_hi, key_lo, max_replicas: int, dims: int,
                    jitter_frac: float) -> np.ndarray:
     """The cell-keyed jitter of ``replicas.make_representatives`` under

@@ -9,7 +9,8 @@ Tolerances, as chip_smoke.py holds the kernels:
 
 * K1 segment_reduce: bit-exact on integer payloads; otherwise, against
   the plain version run in float64, within 1e-5 of each row's own
-  magnitude Σ|v|_row plus 1e-6.
+  magnitude Σ|v|_row plus 1e-6; every group width L, hub rows, empty
+  rows, D ∈ {1, 2, 3}; two calls equal.
 * K2 cic_splat: float atomics add in a schedule-dependent order, so per
   cell within 1e-5·Σ|contributions to the cell| + 1e-6 of the float64
   plain version.
@@ -89,6 +90,64 @@ def test_segment_reduce_kernel_matches_plain(card, rows, fan, d, integer):
         assert bool((err <= 1e-5 * scale + 1e-6).all()), err.max().item()
 
 
+def _sizes_case(sizes, d, seed, integer):
+    bounds = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    e = int(bounds[-1])
+    rng = np.random.default_rng(seed)
+    shape = (e,) if d == 0 else (e, d)
+    vals = (rng.integers(-1000, 1000, size=shape) if integer
+            else rng.normal(size=shape)).astype(np.float32)
+    return torch.from_numpy(vals), torch.from_numpy(bounds)
+
+
+def _check_segment_reduce(card, v, b, integer):
+    """Kernel vs the plain version at the bar above; two calls equal."""
+    got = segred.segment_reduce_cuda(v.to(card), b.to(card))
+    again = segred.segment_reduce_cuda(v.to(card), b.to(card))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    got = got.cpu()
+    want = segred.segment_reduce_torch(v.double(), b)
+    assert got.shape == want.shape
+    if integer:
+        assert torch.equal(got, want.float())
+    else:
+        scale = segred.segment_reduce_torch(v.abs().double(), b)
+        err = (got.double() - want).abs()
+        assert bool((err <= 1e-5 * scale + 1e-6).all()), err.max().item()
+
+
+# mean row length -> group width L: 1 -> 1, 3 -> 2, 7 -> 4, 15 -> 8,
+# 31 -> 16, 63 -> 32
+@pytest.mark.cuda
+@pytest.mark.parametrize("fan,lanes", [(1, 1), (3, 2), (7, 4), (15, 8),
+                                       (31, 16), (63, 32)])
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("integer", [True, False])
+def test_segment_reduce_every_group_width(card, fan, lanes, d, integer):
+    rng = np.random.default_rng(fan + d)
+    sizes = np.full(301, fan)
+    sizes[::7] = 0                                      # empty rows
+    sizes[1::5] = rng.integers(0, 2 * fan + 1, size=sizes[1::5].shape)
+    v, b = _sizes_case(sizes, d, fan * d, integer)
+    assert segred.group_lanes(len(sizes), v.shape[0]) == lanes
+    _check_segment_reduce(card, v, b, integer)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("integer", [True, False])
+def test_segment_reduce_hub_among_short_rows(card, d, integer):
+    """One 1 500-edge hub among 15-edge rows (the dst side's shape): the
+    hub's group strides it at L = 8."""
+    sizes = np.full(2000, 15)
+    sizes[::97] = 0
+    sizes[1234] = 1500
+    v, b = _sizes_case(sizes, d, d, integer)
+    assert segred.group_lanes(len(sizes), v.shape[0]) == 8
+    _check_segment_reduce(card, v, b, integer)
+
+
 @pytest.mark.cuda
 def test_segment_reduce_wrapper_rejects_bad_inputs(card):
     b = torch.tensor([0, 2], dtype=torch.int32, device=card)
@@ -102,6 +161,12 @@ def test_segment_reduce_wrapper_rejects_bad_inputs(card):
         segred.segment_reduce_cuda(torch.ones(2), b)
     with pytest.raises(ValueError, match="CUDA tensors"):
         coo.segment_reduce(torch.ones(2, device=card), b.cpu())
+    # a float2 payload one float off its alignment: raises, never falls back
+    before = LAUNCHES["segment_reduce"]
+    buf = torch.zeros(2 * 2 + 1, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        segred.segment_reduce_cuda(buf[1:].view(2, 2), b)
+    assert LAUNCHES["segment_reduce"] == before
 
 
 def _cic_case(n, g, c, seed):
@@ -154,6 +219,26 @@ def test_cic_gather_kernel_matches_plain_bit_for_bit(card, n, g, c):
     assert torch.equal(got, again)
     assert torch.equal(got.cpu(), cic.cic_gather_torch(fields, i0, f))
     assert torch.equal(got, cic.cic_gather_torch(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,g,c", [(5001, 128, 4), (3001, 1024, 4),
+                                   (777, 64, 3)])
+def test_cic_gather_channels_last_view_bit_for_bit(card, n, g, c):
+    """The layout fft_repulsion hands K3: a (C, G, G) view of a
+    channels-last (G, G, C) tensor, read in place; the same values as a
+    plain contiguous (C, G, G) tensor give the same bits."""
+    i0, f, _ = _cic_case(n, g, c, n + g + 2)
+    cl = torch.from_numpy(np.random.default_rng(g).normal(
+        size=(g, g, c)).astype(np.float32))
+    view = cl.to(card).permute(2, 0, 1)
+    plain = view.contiguous()
+    i0d, fd = i0.to(card), f.to(card)
+    got = cic.cic_gather(view, i0d, fd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cic.cic_gather(plain, i0d, fd))
+    assert torch.equal(got.cpu(), cic.cic_gather_torch(cl.permute(2, 0, 1),
+                                                        i0, f))
 
 
 def _tsne_case(n, dh, dims, seed, block=128):

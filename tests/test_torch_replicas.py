@@ -3,44 +3,18 @@ the JAX reference: live mask, weights and ids identical; points within
 1 ulp given the same jitter (the cell-center sum may be fused into an FMA
 on one side and not the other)."""
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import _torch_parity as par
-from repro.core import quantize as ref_quantize
 from repro.core import replicas as ref_replicas
-from repro.core.heavy_hitters import HeavyHitters as RefHH
-from repro_torch.core import quantize, replicas, u64
-from repro_torch.core.heavy_hitters import HeavyHitters
-
-
-def _hh(seed, k=200, dims=4, bins=8):
-    rng = np.random.default_rng(seed)
-    grid = ref_quantize.GridSpec(dims=dims, bins=bins,
-                                 lo=rng.uniform(-1, 0, dims),
-                                 hi=rng.uniform(1, 2, dims))
-    coords = rng.integers(0, bins, size=(k, dims)).astype(np.uint32)
-    hi, lo = (np.asarray(a) for a in ref_quantize.pack(grid,
-                                                       jnp.asarray(coords)))
-    # integer counts with powers-of-two ratios (exact log2 boundaries),
-    # ties, and a masked tail
-    count = np.sort(rng.choice([1., 2., 3., 4., 7., 8., 16., 64., 300.],
-                               size=k))[::-1].astype(np.float32)
-    mask = np.arange(k) < k - 13
-    count = np.where(mask, count, 0.0).astype(np.float32)
-    ref = RefHH(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(count),
-                jnp.asarray(mask))
-    port = HeavyHitters(u64.from_numpy(hi), u64.from_numpy(lo),
-                        torch.from_numpy(count), torch.from_numpy(mask))
-    tgrid = quantize.GridSpec(dims=dims, bins=bins, lo=grid.lo, hi=grid.hi)
-    return grid, ref, tgrid, port
+from repro_torch.core import prng, quantize, replicas
 
 
 @pytest.mark.parametrize("scheme", ["uniform", "rank", "count"])
 def test_replica_counts_identical(scheme):
-    _, ref, _, port = _hh(0)
+    _, ref, _, port = par.hh_case(0)
     np.testing.assert_array_equal(
         np.asarray(ref_replicas.replica_counts(ref, scheme, 8)),
         replicas.replica_counts(port, scheme, 8).numpy())
@@ -48,7 +22,7 @@ def test_replica_counts_identical(scheme):
 
 @pytest.mark.parametrize("scheme,max_replicas", [("count", 8), ("rank", 3)])
 def test_representatives_match_given_jitter(scheme, max_replicas):
-    grid, ref, tgrid, port = _hh(1)
+    grid, ref, tgrid, port = par.hh_case(1)
     seed = 4
     rr = ref_replicas.make_representatives(
         jax.random.split(jax.random.key(seed + 1))[0],
@@ -71,9 +45,8 @@ def test_representatives_match_given_jitter(scheme, max_replicas):
 
 
 def test_generator_jitter_stays_inside_the_cell():
-    _, _, tgrid, port = _hh(2)
-    g = torch.Generator().manual_seed(0)
-    reps = replicas.make_representatives(tgrid, port, generator=g,
+    _, _, tgrid, port = par.hh_case(2)
+    reps = replicas.make_representatives(tgrid, port, key=prng.key(0),
                                          jitter_frac=0.25)
     centers = quantize.cell_center(tgrid, quantize.unpack(
         tgrid, (port.key_hi, port.key_lo)))
@@ -83,3 +56,5 @@ def test_generator_jitter_stays_inside_the_cell():
     with pytest.raises(ValueError, match="jitter must have shape"):
         replicas.make_representatives(tgrid, port,
                                       jitter=torch.zeros(3, 8, 4))
+    with pytest.raises(ValueError, match="threefry key"):
+        replicas.make_representatives(tgrid, port)

@@ -101,3 +101,14 @@ def test_cpu_tensors_take_the_plain_version(d):
     assert torch.equal(coo.segment_reduce(v, b),
                        segred.segment_reduce_torch(v, b))
     assert LAUNCHES["segment_reduce"] == before
+
+
+@pytest.mark.parametrize("n,e,lanes", [(46348, 695220, 8),
+                                       (207759, 37396620, 32),
+                                       (10, 0, 1), (10, 20, 1), (10, 21, 2),
+                                       (10, 80, 4), (10, 81, 8),
+                                       (0, 5, 4), (1, 10**6, 32)])
+def test_group_lanes_from_shapes(n, e, lanes):
+    """K1's lanes per row: the smallest power of two >= E / 2N, capped at
+    a warp; 8 at the UMAP epoch's shapes, 32 at path S's."""
+    assert segred.group_lanes(n, e) == lanes

@@ -158,6 +158,36 @@ def test_run_streaming_matches_reference_and_oneshot():
     _assert_hh_equal(h, ref_hh)
 
 
+def test_streaming_heavy_hitters_match_reference_under_eviction():
+    """A reservoir far smaller than the occupied cells (evict_max > 0):
+    the port's streaming heavy hitters still equal the reference's
+    streaming sketch stage on the same chunks and hash parameters, so a
+    share below 1 against the one-shot is the algorithm's own."""
+    from repro.data.synthetic import MixtureSpec, gaussian_mixture
+    spec = MixtureSpec(dims=3, n_clusters=6, cluster_std=0.08,
+                       background_frac=0.3)
+    pts, _ = gaussian_mixture(4000, spec, seed=3)
+
+    def factory():
+        return (pts[s:s + 611] for s in range(0, len(pts), 611))
+    kw = dict(CFG, bins=8, top_k=16, candidate_pool=40)
+    cfg, ref_cfg = pipeline.SnsConfig(**kw), ref_pipeline.SnsConfig(**kw)
+    hp = carry.hash_params_from_numpy(*hash_params(cfg.seed, cfg.rows))
+    grid, state = pipeline._ingest_stream(cfg, factory, None,
+                                          torch.device("cpu"), hp)
+    ref_grid, ref_state = ref_pipeline._ingest_stream(ref_cfg, factory, None)
+    assert int(state.evict_max) > 0
+    _assert_state_equal(state, ref_state)
+    g, hh, total = pipeline.sketch_stage_streaming(cfg, factory,
+                                                   device="cpu",
+                                                   hash_params=hp)
+    rg, ref_hh, ref_total = ref_pipeline.sketch_stage_streaming(ref_cfg,
+                                                                factory)
+    assert (g.lo, g.hi) == (rg.lo, rg.hi) and total == ref_total == 4000.0
+    _assert_hh_equal(hh, ref_hh)
+    assert int(hh.mask.sum()) == 16
+
+
 def test_checkpoint_round_trip_corruption_and_backup(tmp_path):
     rng = np.random.default_rng(6)
     g = quantize.GridSpec(**GRIDS["narrow"])
