@@ -11,13 +11,16 @@ Phases, each failing the run (non-zero exit) if it fails:
                  anything large runs: K1 on a small CSR and at every
                  group width (mean rows 1-63, D 1-3); K2/K3 at
                  N = 100 003 on G = 128 and 1024 with points on the edge
-                 cells; K5a/K5b at N = 6000 padded to 6144; K4 on random
-                 tiles (window padding, self pairs, a half-empty last
-                 tile) at several (T, B, D) and on a probe layout of
-                 N = 100 003 points; K6 at N = 100 003, D ∈ {2, 8, 12} ×
-                 log2_cols ∈ {6, 18, 22} with points on bin edges and
-                 outside the grid; K7 at R ∈ {1, 16} × log2_cols ∈ {6, 18,
-                 22}, integer and weighted; K8 at Q = 40 000;
+                 cells (K2 also at N = 1 and with the masses scaled by
+                 1e-4 and 1e4, each deterministic); K5a/K5b at N = 6000
+                 padded to 6144, rows in the caller's order and in the
+                 locality order; K4 on random tiles (window padding,
+                 self pairs, a half-empty last tile) at several (T, B,
+                 D) and on a probe layout of N = 100 003 points; K6 at
+                 N = 100 003, D ∈ {2, 8, 12} × log2_cols ∈ {6, 18, 22}
+                 with points on bin edges and outside the grid; K7 at
+                 R ∈ {1, 16} × log2_cols ∈ {6, 18, 22}, integer and
+                 weighted; K8 at Q = 40 000;
 3. main        — ``pipeline.run`` at the paper's cancer configuration
                  (``CANCER``, UMAP, exact kNN) on
                  ``gaussian_mixture(26_000_000, dims=8)``, the paper's 26M
@@ -49,8 +52,11 @@ Phases, each failing the run (non-zero exit) if it fails:
                  dedupe, the final G; asserts K4 = probes × stage-1 chunks
                  and K1 = K2 = K3 = 500 launches and recall ≥ 0.9 on 8192
                  sampled rows against their exact rows (``knn_query``
-                 against all N); then K4 and K3 (at the final G) at its
-                 shapes and a profile;
+                 against all N); then K4, K2 and K3 (at the final G) at
+                 its shapes and a profile; then the reproducibility gate:
+                 the optimizer on its P from one init, 100 iterations, G
+                 checked every 40, run twice, must give equal bits and
+                 the same G choices;
 8. stream      — path I: ``pipeline.run_streaming(CANCER, factory,
                  grid=None)`` over the same 26M points as host numpy
                  slices of 1 000 003: stage seconds (grid pass, ingest,
@@ -238,21 +244,32 @@ def check_segment_reduce(vals_int, vals_rand, bounds):
     return err.max().item()
 
 
+def check_splat(i0, f, vals, g):
+    """K2 deterministic (two calls, equal bits) and, per cell, within
+    1e-5·Σ|contributions| + 1e-6 of the float64 plain version (the
+    fixed-point sums round each product to a multiple of 2^-s).  Returns
+    the max abs error."""
+    import torch
+    from repro_torch.kernels import cic
+    got = cic.cic_splat_cuda(i0, f, vals, g)
+    if not torch.equal(got, cic.cic_splat_cuda(i0, f, vals, g)):
+        raise AssertionError(f"cic_splat: two calls differ at G={g}")
+    want = cic.cic_splat_torch(i0, f.double(), vals.double(), g)
+    scale = cic.cic_splat_torch(i0, f.double(), vals.double().abs(), g)
+    err = (got.double() - want).abs()
+    if not bool((err <= 1e-5 * scale + 1e-6).all()):
+        raise AssertionError(f"cic_splat: off by {err.max().item()} at G={g}")
+    return err.max().item()
+
+
 def check_cic(i0, f, vals, fields):
-    """K2 against the float64 plain version, per cell within
-    1e-5·Σ|contributions| + 1e-6 (float atomics add in a schedule-
-    dependent order); K3 bit-exact against the float32 plain version and
-    deterministic.  Returns (K2 max abs err, K3 max abs err against the
-    float64 plain version)."""
+    """K2 as :func:`check_splat`; K3 bit-exact against the float32 plain
+    version and deterministic.  Returns (K2 max abs err, K3 max abs err
+    against the float64 plain version)."""
     import torch
     from repro_torch.kernels import cic
     g = fields.shape[-1]
-    got = cic.cic_splat_cuda(i0, f, vals, g).double()
-    want = cic.cic_splat_torch(i0, f.double(), vals.double(), g)
-    scale = cic.cic_splat_torch(i0, f.double(), vals.double().abs(), g)
-    err = (got - want).abs()
-    if not bool((err <= 1e-5 * scale + 1e-6).all()):
-        raise AssertionError(f"cic_splat: off by {err.max().item()} at G={g}")
+    err = check_splat(i0, f, vals, g)
     got = cic.cic_gather_cuda(fields, i0, f)
     if not (torch.equal(got, cic.cic_gather_torch(fields, i0, f))
             and torch.equal(got, cic.cic_gather_cuda(fields, i0, f))):
@@ -260,7 +277,7 @@ def check_cic(i0, f, vals, fields):
                              f"version at G={g}")
     err_g = (got.double() - cic.cic_gather_torch(
         fields.double(), i0, f.double())).abs().max().item()
-    return err.max().item(), err_g
+    return err, err_g
 
 
 def check_tsne(xp, yp, sp, n, exag):
@@ -361,6 +378,18 @@ def cic_inputs(device, n, g, seed):
     return [t.contiguous().to(device) for t in (i0, f, vals, fields)]
 
 
+def locality_operands(xp, yp, sp, n):
+    """The padded operands as ``tsne_step_fused`` hands them to the
+    kernels: valid rows in ``locality_order``, padding last.  Returns
+    ((x, y, stats), the order)."""
+    import torch
+    from repro_torch.kernels import tsne_forces as tf
+    order = tf.locality_order(xp[:n])
+    perm = torch.cat([order, torch.arange(n, xp.shape[0],
+                                          device=xp.device)])
+    return (xp[perm], yp[perm], sp[perm]), order
+
+
 def tsne_inputs(device, n, block, seed):
     """Clustered 8-D points, a spread embedding, calibrated stats with
     random weights, all padded to ``block`` rows."""
@@ -413,17 +442,25 @@ def phase_check(device):
             f"on integers; random max_abs_err "
             + "/".join(f"{x:.3e}" for x in errs))
     for grid in (128, 1024):
-        e2, e3 = check_cic(*cic_inputs(device, CHECK_CIC_POINTS, grid, grid))
+        i0, f, vals, fields = cic_inputs(device, CHECK_CIC_POINTS, grid, grid)
+        e2, e3 = check_cic(i0, f, vals, fields)
+        scaled = [check_splat(i0, f, vals * m, grid) for m in (1e-4, 1e4)]
+        e1 = check_splat(i0[:1], f[:1], vals[:1], grid)
         log(f"[check] cic_splat / cic_gather at N={CHECK_CIC_POINTS}, "
-            f"G={grid} (edge cells included): splat max_abs_err {e2:.3e} "
-            f"(within 1e-5·Σ|contrib|+1e-6 per cell); gather bit-exact vs "
-            f"the f32 plain version, {e3:.3e} vs f64")
+            f"G={grid} (edge cells included): splat deterministic, "
+            f"max_abs_err {e2:.3e} (masses x1e-4 {scaled[0]:.3e}, x1e4 "
+            f"{scaled[1]:.3e}; N=1 {e1:.3e}; each within "
+            f"1e-5·Σ|contrib|+1e-6 per cell); gather bit-exact vs the f32 "
+            f"plain version, {e3:.3e} vs f64")
     xp, yp, sp = tsne_inputs(device, CHECK_TSNE_POINTS, 512, 3)
+    ordered, _ = locality_operands(xp, yp, sp, CHECK_TSNE_POINTS)
     for exag in (12.0, 1.0):
-        f_err, z_rel, kl_rel = check_tsne(xp, yp, sp, CHECK_TSNE_POINTS, exag)
-        log(f"[check] tsne_z / tsne_forces at N={CHECK_TSNE_POINTS} padded "
-            f"to {xp.shape[0]}, exag {exag}: force max_abs_err {f_err:.3e}, "
-            f"Z rel {z_rel:.3e}, KL rel {kl_rel:.3e}; deterministic")
+        for tag, ops in (("caller's", (xp, yp, sp)), ("locality", ordered)):
+            f_err, z_rel, kl_rel = check_tsne(*ops, CHECK_TSNE_POINTS, exag)
+            log(f"[check] tsne_z / tsne_forces at N={CHECK_TSNE_POINTS} "
+                f"padded to {xp.shape[0]}, exag {exag}, {tag} order: force "
+                f"max_abs_err {f_err:.3e}, Z rel {z_rel:.3e}, KL rel "
+                f"{kl_rel:.3e}; deterministic")
     from repro_torch.core import ann
     for t, b, d in CHECK_KNN_TILES:
         err, rel = check_knn_tile(*knn_tile_inputs(device, t, b, d, t + b))
@@ -857,7 +894,6 @@ def phase_tsne_sparse(device, pts, warm, spec):
     import torch
     from repro_torch.configs.sns_paper import CANCER_100K
     from repro_torch.core import ann, neighbors, pipeline, tsne
-    from repro_torch.kernels import cic
 
     cfg = dataclasses.replace(CANCER_100K, embed_knn_method="exact")
     ecfg = pipeline.resolve_embed_cfg(cfg)
@@ -912,31 +948,9 @@ def phase_tsne_sparse(device, pts, warm, spec):
 
     i0, f, masses, grid, fields = path_fields(y, g)
     e2, e3 = check_cic(i0, f, masses, fields)
-    occ = torch.bincount(i0[:, 0].long() * g + i0[:, 1].long(),
-                         minlength=g * g)
-    log(f"[kernels] cic at path S: N {n}, G {g}; points per cell: max "
-        f"{int(occ.max())}, mean over occupied "
-        f"{n / max(int((occ > 0).sum()), 1):.1f}, occupied cells "
-        f"{int((occ > 0).sum())} of {g * g}")
-    ix, iy = i0[:, 0].long(), i0[:, 1].long()
-    corners = ((0, 0), (0, 1), (1, 0), (1, 1))
-    lib_idx = torch.cat([c * g * g + (ix + dx) * g + iy + dy
-                         for c in range(3) for dx, dy in corners])
-    lib_val = torch.cat([cic._corner_weight(f, dx, dy) * masses[:, c]
-                         for c in range(3) for dx, dy in corners])
-    k2 = timings({
-        "ms": lambda: cic.cic_splat_cuda(i0, f, masses, g),
-        "plain_ms": lambda: cic.cic_splat_torch(i0, f, masses, g),
-        "library_ms": lambda: torch.zeros(3 * g * g, device=device
-                                          ).index_add_(0, lib_idx, lib_val)},
-        100)
-    k2["bound_ms"], k2["bound_by"] = op_bound_ms(n * (8 + 8 + 12)
-                                                 + 3 * g * g * 4)
-    k2["max_abs_err"] = e2
-    log_row("cic_splat", k2, "; library = one index_add_ over the "
-            "flattened grid with precomputed corner indices")
+    k2 = cic_splat_row("cic_splat", i0, f, masses, g, e2)
     k3 = cic_gather_row("cic_gather", fields, i0, f, e3)
-    del grid, fields, lib_idx, lib_val
+    del grid, fields
     tsne_step_profile(f"tSNE sparse iteration (N {n}, E {e}, G {g})", y,
                       lambda yy: tsne.sparse_grad(yy, sp, 1.0, g), ecfg)
 
@@ -963,6 +977,66 @@ def path_fields(y, g):
     fields = torch.stack([conv1[0], conv1[1], conv1[2], conv0], -1
                          ).permute(2, 0, 1)
     return i0, f, masses, grid, fields
+
+
+def splat_atomics(i0, f, vals, g):
+    """The 64-bit atomics one K2 call issues, counted by the kernel itself
+    through its C entry's counter (the wrapper passes none); the counted
+    call's grid must equal the wrapper's."""
+    import torch
+    from repro_torch.kernels import _build, cic
+    n, c = vals.shape
+    acc = torch.zeros((c * g * g + 1,), dtype=torch.int64, device=vals.device)
+    out = torch.empty((c, g, g), device=vals.device)
+    count = torch.zeros((1,), dtype=torch.int64, device=vals.device)
+    fn = _build.entry("cic", "cic_splat_f32", cic.SPLAT_SIG)
+    rc = fn(i0.data_ptr(), f.data_ptr(), vals.data_ptr(), n, c, g,
+            acc.data_ptr(), out.data_ptr(), count.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"cic_splat (counted) launch failed: CUDA error "
+                           f"{rc}")
+    if not torch.equal(out, cic.cic_splat_cuda(i0, f, vals, g)):
+        raise AssertionError("cic_splat: the counted call's grid differs")
+    return int(count.item())
+
+
+def cic_splat_row(tag, i0, f, masses, g, err):
+    """K2 timed at a path's shapes beside its plain version, one
+    ``index_add_`` of the precomputed corner products over the flattened
+    grid, and the byte bound; the atomics it issues, counted by the
+    kernel."""
+    import torch
+    from repro_torch.kernels import cic
+    n, c = masses.shape
+    occ = torch.bincount(i0[:, 0].long() * g + i0[:, 1].long(),
+                         minlength=g * g)
+    ix, iy = i0[:, 0].long(), i0[:, 1].long()
+    corners = ((0, 0), (0, 1), (1, 0), (1, 1))
+    lib_idx = torch.cat([ch * g * g + (ix + dx) * g + iy + dy
+                         for ch in range(c) for dx, dy in corners])
+    lib_val = torch.cat([cic._corner_weight(f, dx, dy) * masses[:, ch]
+                         for ch in range(c) for dx, dy in corners])
+    lib = torch.zeros(c * g * g, device=masses.device)
+
+    def library_splat():
+        return lib.zero_().index_add_(0, lib_idx, lib_val)
+    row = timings({"ms": lambda: cic.cic_splat_cuda(i0, f, masses, g),
+                   "plain_ms": lambda: cic.cic_splat_torch(i0, f, masses, g),
+                   "library_ms": library_splat}, 100)
+    row["bound_ms"], row["bound_by"] = op_bound_ms(n * (8 + 8 + 4 * c)
+                                                   + c * g * g * 4)
+    row["max_abs_err"] = err
+    row["atomics"] = splat_atomics(i0, f, masses, g)
+    row["shapes"] = {"n": n, "g": g, "c": c}
+    log_row(tag, row, f"; N {n}, G {g}; points per cell: max "
+            f"{int(occ.max())}, mean over occupied "
+            f"{n / max(int((occ > 0).sum()), 1):.1f}, occupied cells "
+            f"{int((occ > 0).sum())} of {g * g}; 64-bit atomics a call, "
+            f"counted by the kernel: {row['atomics']} ({4 * c * n} corner "
+            f"products); library = index_add_ of the precomputed corner "
+            f"products over the flattened grid (zeroed first)")
+    return row
 
 
 def cic_gather_row(tag, fields, i0, f, err):
@@ -995,28 +1069,68 @@ def cic_gather_row(tag, fields, i0, f, err):
     return row
 
 
-def positive_pairs(xp, sp, n, rows=2048):
-    """Valid pairs with P_ij > 0 in float32: where K5b takes its two logs."""
+def pair_census(xp, sp, n, orders, rows=2048):
+    """K5b's data-dependent work, from the valid rows' x and stats in
+    float32 (base-2 exponents e = -beta·log2(e)·d² - shift·log2(e), as
+    the kernel forms them): the valid pairs with max(e_ij, e_ji) >= -126,
+    where it needs the distance in x and the exps and, P being > 0 there,
+    takes its logs; and, for each row order, the share of warp steps that
+    need no exp (32 consecutive rows of the order against one valid
+    column: ``column``) and the share of 32 × 32 blocks (a warp's rows
+    against a group of 32 columns) whose box bound, the kernel's skip
+    test, puts every exponent below -126 (``group``)."""
     import torch
     from repro_torch.core import tsne
-    x = xp[:n]
-    beta, shift, zp, w = sp[:n].unbind(1)
-    c = 0.5 * w / zp
-    ids = torch.arange(n, device=x.device)
-    count = 0
-    for lo in range(0, n, rows):
-        d2 = tsne.pairwise_sq_dists(x[lo:lo + rows], x)
-        p = c[lo:lo + rows, None] * torch.exp(
-            -beta[lo:lo + rows, None] * d2 - shift[lo:lo + rows, None]) \
-            + c[None, :] * torch.exp(-beta[None, :] * d2 - shift[None, :])
-        valid = ids[lo:lo + rows, None] != ids[None, :]
-        count += int(((p > 0) & valid).sum())
-    return count
+    beta, shift, _, _ = sp[:n].unbind(1)
+    l2e = 1.4426950408889634
+    nb, ns = -beta * l2e, -shift * l2e
+    live, skip = 0, {}
+    for name, o in orders.items():
+        x, b, s = xp[:n][o], nb[o], ns[o]
+        ids = torch.arange(n, device=x.device)
+        steps = skipped = 0
+        for lo in range(0, n, rows):
+            hi = min(lo + rows, n)
+            d2 = tsne.pairwise_sq_dists(x[lo:hi], x)
+            need = torch.maximum(b[lo:hi, None] * d2 + s[lo:hi, None],
+                                 b[None, :] * d2 + s[None, :]) >= -126.0
+            need &= ids[lo:hi, None] != ids[None, :]
+            if not skip:
+                live += int(need.sum())
+            pad = (-need.shape[0]) % 32
+            if pad:
+                need = torch.cat([need, need.new_zeros((pad, n))])
+            warps = need.view(-1, 32, n).any(1)
+            steps += warps.numel()
+            skipped += int((~warps).sum())
+            del d2, need, warps
+        pad = (-n) % 32
+        inf = torch.full((pad, x.shape[1]), float("inf"), device=x.device)
+        lo_g = torch.cat([x, inf]).view(-1, 32, x.shape[1]).amin(1)
+        hi_g = torch.cat([x, -inf]).view(-1, 32, x.shape[1]).amax(1)
+        ninf = torch.full((pad,), -float("inf"), device=x.device)
+        bg, sg = torch.cat([b, ninf]).view(-1, 32), torch.cat(
+            [s, ninf]).view(-1, 32)
+        blocks = blocked = 0
+        for g in range(0, lo_g.shape[0], 64):
+            gap = torch.maximum(lo_g[None] - hi_g[g:g + 64, None],
+                                lo_g[g:g + 64, None] - hi_g[None]).clamp(
+                                    min=0)
+            d2 = (gap * gap).sum(2)                          # (64, G)
+            row = (bg[g:g + 64, :, None] * d2[:, None] + sg[
+                g:g + 64, :, None]).amax(1) >= -126.0
+            col = bg.amax(1)[None] * d2 + sg.amax(1)[None] >= -126.0
+            blocks += d2.numel()
+            blocked += int((~(row | col)).sum())
+        skip[name] = {"column": skipped / steps, "group": blocked / blocks}
+    return live, skip
 
 
 def phase_tsne_exact(device, pts, warm, spec):
     """Path E: the CANCER sketch with the fused exact tSNE gradient on
-    the main points; then K5a and K5b at its shapes.  Returns their
+    the main points; then K5a and K5b at its shapes, K5b on rows in the
+    locality order (the main path's) and in the caller's, beside the
+    order's own cost, the fused step's and three bounds.  Returns their
     entries."""
     import torch
     from repro_torch.configs.sns_paper import CANCER
@@ -1046,36 +1160,73 @@ def phase_tsne_exact(device, pts, warm, spec):
     blk = min(ecfg.block, n)
     xp, yp = tf.pad_rows(x, blk), tf.pad_rows(res.embedding, blk)
     sp = tf.step_stats(st.beta, st.zp, st.shift, st.w, blk)
-    f_err, z_rel, kl_rel = check_tsne(xp, yp, sp, n, 1.0)
-    log(f"[kernels] tsne at path E (N {n} padded to {xp.shape[0]}, exag 1):"
-        f" force max_abs_err {f_err:.3e}, Z rel {z_rel:.3e}, KL rel "
-        f"{kl_rel:.3e}")
+    (xo, yo, so), order = locality_operands(xp, yp, sp, n)
+    errs = {}
+    for tag, ops in (("morton", (xo, yo, so)), ("caller", (xp, yp, sp))):
+        errs[tag] = check_tsne(*ops, n, 1.0)
+        log(f"[kernels] tsne at path E (N {n} padded to {xp.shape[0]}, exag "
+            f"1, rows in the {tag} order): force max_abs_err "
+            f"{errs[tag][0]:.3e}, Z rel {errs[tag][1]:.3e}, KL rel "
+            f"{errs[tag][2]:.3e}")
+    f_err, z_rel, _ = errs["morton"]
     pairs = n * (n - 1)
-    pos = positive_pairs(xp, sp, n)
+    live, skip = pair_census(xp, sp, n, {
+        "morton": order, "caller": torch.arange(n, device=device)})
     dh, dims, npad = xp.shape[1], yp.shape[1], xp.shape[0]
-    log(f"[kernels] pairs {pairs}, with P > 0 {pos} ({pos / pairs:.1%})")
-    z = tf.tsne_z_cuda(yp, n)
-    k5a = timings({"ms": lambda: tf.tsne_z_cuda(yp, n),
-                   "plain_ms": lambda: tf.tsne_z_torch(yp, n),
+    log(f"[kernels] pairs {pairs}, with an exponent >= -126 (base 2; P > 0, "
+        f"distances in x, exps and logs needed) {live} ({live / pairs:.1%}); "
+        f"warp column steps needing no exp / 32x32 blocks K5b's box bound "
+        f"skips: {skip['morton']['column']:.4f} / "
+        f"{skip['morton']['group']:.4f} in the locality order, "
+        f"{skip['caller']['column']:.4f} / {skip['caller']['group']:.4f} in "
+        f"the caller's")
+    z = tf.tsne_z_cuda(yo, n)
+    k5a = timings({"ms": lambda: tf.tsne_z_cuda(yo, n),
+                   "plain_ms": lambda: tf.tsne_z_torch(yo, n),
                    "library_ms": None}, 10)
     k5a["bound_ms"], k5a["bound_by"] = op_bound_ms(
         npad * dims * 4 + 4, flops=pairs * (3 * dims + 1), sfu=pairs)
     k5a["max_abs_err"] = z_rel * z.item()
     log_row("tsne_z", k5a)
     k5b = timings({
-        "ms": lambda: tf.tsne_forces_cuda(xp, yp, sp, z, 1.0, n),
-        "plain_ms": lambda: tf.tsne_forces_torch(xp, yp, sp, z, 1.0, n),
-        "library_ms": None}, 10)
+        "ms": lambda: tf.tsne_forces_cuda(xo, yo, so, z, 1.0, n),
+        "plain_ms": lambda: tf.tsne_forces_torch(xo, yo, so, z, 1.0, n),
+        "library_ms": None,
+        "ms_caller_order": lambda: tf.tsne_forces_cuda(xp, yp, sp, z, 1.0, n),
+        "order_ms": lambda: tf.locality_order(x),
+        "step_ms": lambda: tf.tsne_step_fused(
+            x, res.embedding, st.beta, st.zp, shift=st.shift, weights=st.w,
+            block=blk, return_kl=True, order=order)}, 10)
+    nbytes = npad * (dh + dims + 4) * 4 + 4 + npad * dims * 4 + 16
+    # every valid pair needs its repulsion (the distance in y, one
+    # reciprocal, 5 dims + 3 flops); only the live pairs, where an exponent
+    # reaches -126, need the distance in x, both exps, p and the logs
+    # (3 Dh + 12 flops, 4 special-function ops)
     k5b["bound_ms"], k5b["bound_by"] = op_bound_ms(
-        npad * (dh + dims + 4) * 4 + 4 + npad * dims * 4 + 16,
-        flops=pairs * (3 * dh + 5 * dims + 11) + pos * 4,
-        sfu=pairs * 3 + pos * 2)
+        nbytes, flops=pairs * (5 * dims + 3) + live * (3 * dh + 12),
+        sfu=pairs + 4 * live)
+    # the same with the distance in x of every pair, and the count
+    # before K5b's redesign, with every exp as well
+    flops = pairs * (3 * dh + 5 * dims + 11) + live * 4
+    k5b["bound_exps_live_ms"], _ = op_bound_ms(nbytes, flops=flops,
+                                               sfu=pairs + 4 * live)
+    k5b["bound_all_exps_ms"], _ = op_bound_ms(nbytes, flops=flops,
+                                              sfu=3 * pairs + 2 * live)
     k5b["max_abs_err"] = f_err
-    log_row("tsne_forces", k5b)
+    k5b["skip_share"] = skip
+    log_row("tsne_forces", k5b, f"; rows in the locality order; in the "
+            f"caller's order {us(k5b['ms_caller_order'])} us; the order "
+            f"itself {us(k5b['order_ms'])} us "
+            f"({k5b['order_ms'] / k5b['ms']:.2%} of K5b, once a run); the "
+            f"fused step given the order (permutations, K5a, K5b) "
+            f"{us(k5b['step_ms'])} us; bounds: the data's need "
+            f"{us(k5b['bound_ms'])} us, with the distances in x of every "
+            f"pair {us(k5b['bound_exps_live_ms'])} us, with every exp too "
+            f"{us(k5b['bound_all_exps_ms'])} us")
     tsne_step_profile(f"tSNE exact fused iteration (N {n})", res.embedding,
                       lambda yy: tsne.embedding_grad(
                           x, yy, st, 1.0, backend="pallas",
-                          block=ecfg.block), ecfg)
+                          block=ecfg.block, order=order), ecfg)
 
     def entry(name, row, line):
         return dict({"name": name, "route": "cuda",
@@ -1083,14 +1234,15 @@ def phase_tsne_exact(device, pts, warm, spec):
                      "replaces": f"src/repro/kernels/tsne_forces.py:{line}",
                      "shapes": {"n": n, "n_pad": npad, "dh": dh,
                                 "dims": dims, "pairs": pairs,
-                                "pairs_p_positive": pos}}, **row)
+                                "pairs_live": live}}, **row)
     return entry("tsne_z", k5a, 58), entry("tsne_forces", k5b, 69)
 
 
 def phase_ann(device, pts, warm, spec):
     """Path A: CANCER_1M (sparse tSNE on the approximate kNN graph,
     adaptive grid) on the main points; then the ANN build's split, its
-    recall on a row sample, and K4 at its shapes.  Returns K4's entry."""
+    recall on a row sample, K4, K2 and K3 at its shapes, and the
+    reproducibility gate.  Returns K4's entry and K2's and K3's rows."""
     import torch
     from repro_torch.configs.sns_paper import CANCER_1M
     from repro_torch.core import ann, neighbors, pipeline, tsne
@@ -1121,18 +1273,10 @@ def phase_ann(device, pts, warm, spec):
                 "segment_reduce": n_iter, "cic_splat": n_iter,
                 "cic_gather": n_iter, **ONE_SHOT_SKETCH}
     # record the adaptive grid's choices: the last is the final G
-    grids, grid_for_span = [], tsne._grid_for_span
-
-    def spy(span, g, c):
-        grids.append(grid_for_span(span, g, c))
-        return grids[-1]
-    tsne._grid_for_span = spy
-    try:
+    with GridSpy() as grids:
         res = drive(
             "ann", cfg, pts, warm, spec, device, expect, tsne_cfg=tcfg,
             warm_tsne_cfg=tsne.TsneConfig(n_iter=20), min_knn_purity=0.95)
-    finally:
-        tsne._grid_for_span = grid_for_span
     x, w = res.reps.points[res.reps.mask], res.rep_weight
     n = x.shape[0]
     k = knn_k(n)
@@ -1198,17 +1342,68 @@ def phase_ann(device, pts, warm, spec):
             f"cᵀ, alpha=-2): the same Gram form, no clamp, no masks")
     del args, qx, qid, cx, cid, base, cxt
     i0, f, masses, grid, fields = path_fields(res.embedding, g_final)
-    _, e3 = check_cic(i0, f, masses, fields)
+    e2, e3 = check_cic(i0, f, masses, fields)
+    k2 = cic_splat_row("cic_splat ann", i0, f, masses, g_final, e2)
     k3 = cic_gather_row("cic_gather ann", fields, i0, f, e3)
     del i0, f, masses, grid, fields
     tsne_step_profile(f"tSNE sparse iteration on the ANN graph (N {n}, E "
                       f"{e}, G {g_final})", res.embedding,
                       lambda yy: tsne.sparse_grad(yy, sp, 1.0, g_final), ecfg)
+    reproducibility_gate(sp, n, ecfg, device)
     return dict({"name": "knn_dist_tiles", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/knn_tile.cu",
                  "replaces": "src/repro/kernels/knn_tile.py:36",
                  "shapes": {"n": n, "k": k, "t": t, "b": b, "c": c, "d": d,
-                            "probes": acfg.probes}}, **k4), k3
+                            "probes": acfg.probes}}, **k4), k2, k3
+
+
+class GridSpy:
+    """Records the adaptive grid's choices (``tsne._grid_for_span``'s
+    results, one per stage) while the ``with`` block runs."""
+
+    def __enter__(self):
+        from repro_torch.core import tsne
+        self.grids, self.orig = [], tsne._grid_for_span
+
+        def spy(span, g, c):
+            self.grids.append(self.orig(span, g, c))
+            return self.grids[-1]
+        tsne._grid_for_span = spy
+        return self.grids
+
+    def __exit__(self, *exc):
+        from repro_torch.core import tsne
+        tsne._grid_for_span = self.orig
+
+
+def reproducibility_gate(sp, n, ecfg, device, n_iter=100, interval=40):
+    """Path A's optimizer on its P from one init, ``n_iter`` iterations
+    with G checked every ``interval``, run twice: the embeddings, the KL
+    traces and the G choices must be equal bit for bit."""
+    import zlib
+    import torch
+    from repro_torch.core import tsne
+    cfg = dataclasses.replace(ecfg, n_iter=n_iter,
+                              adaptive_interval=interval)
+    y0 = 1e-4 * torch.randn((n, 2), generator=torch.Generator(
+        device=device).manual_seed(11), device=device)
+    runs = []
+    for _ in range(2):
+        with GridSpy() as grids:
+            y, kl = tsne._optimize(
+                y0, lambda yy, exag, g: tsne.sparse_grad(yy, sp, exag, g),
+                cfg, adaptive=True)
+        runs.append((y, kl, grids))
+    (ya, ka, ga), (yb, kb, gb) = runs
+    same = torch.equal(ya, yb) and torch.equal(ka, kb) and ga == gb
+    crc = [f"{zlib.crc32(y.cpu().numpy().tobytes()):08x}" for y, _, _ in runs]
+    log(f"[ann] reproducibility gate: the optimizer on path A's P from one "
+        f"init, {n_iter} iterations, G checked every {interval} (from "
+        f"{cfg.grid_size}: {ga} and {gb}), run twice: embeddings {crc[0]} "
+        f"and {crc[1]}, KL traces equal {torch.equal(ka, kb)}; bit-identical: "
+        f"{same}")
+    if not same:
+        raise AssertionError("[ann] path A's optimizer is not reproducible")
 
 
 class IngestSpy:
@@ -1604,7 +1799,8 @@ def main(argv=None) -> int:
     k2, k3, k1_sparse = phase_tsne_sparse(device, pts, warm, spec)
     k1["per_call"]["tsne_sparse"] = k1_sparse
     k5a, k5b = phase_tsne_exact(device, pts, warm, spec)
-    k4, k3_ann = phase_ann(device, pts, warm, spec)
+    k4, k2_ann, k3_ann = phase_ann(device, pts, warm, spec)
+    k2["per_call"] = {"tsne_sparse": dict(k2), "ann": k2_ann}
     k3["per_call"] = {"tsne_sparse": dict(k3), "ann": k3_ann}
     cfg_i, state, runs, peak = phase_stream(device, pts, pts_np, warm, spec)
     phase_ops(device, pts, cfg_i)

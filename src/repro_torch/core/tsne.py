@@ -18,7 +18,9 @@ Backends (``TsneConfig.backend``):
 ``pallas``  the fused two-pass gradient, named as in the reference: on
             the card the hand-written kernels K5a ``tsne_z`` and K5b
             ``tsne_forces`` (``kernels/tsne_forces.py``), on the CPU their
-            plain twins;
+            plain twins, the rows in a locality order of x computed once
+            a run (K5b skips the attraction of far row and column
+            groups);
 ``sparse``  kNN attraction through the segment-reduce kernel K1
             (``coo.segment_reduce``) and FFT-grid repulsion: the
             cloud-in-cell splat K2 and gather K3 (``kernels/cic.py``)
@@ -383,9 +385,12 @@ def _grad_and_kl(p: torch.Tensor, y: torch.Tensor
 
 def embedding_grad(x: torch.Tensor, y: torch.Tensor, stats: PointStats,
                    exaggeration: float = 1.0, *, backend: str = "tiled",
-                   block: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+                   block: int = 512, order: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One exact gradient on any exact backend: (grad (N, dims), KL of the
-    exaggerated P against the current Q)."""
+    exaggerated P against the current Q).  ``order``: the "pallas"
+    backend's row order (``fused.locality_order(x)``, computed per call
+    when None)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; want one of {BACKENDS}")
     if backend == "sparse":
@@ -398,7 +403,8 @@ def embedding_grad(x: torch.Tensor, y: torch.Tensor, stats: PointStats,
     if backend == "pallas":
         return fused.tsne_step_fused(
             x, y, stats.beta, stats.zp, shift=stats.shift, weights=stats.w,
-            exaggeration=exaggeration, block=block, return_kl=True)
+            exaggeration=exaggeration, block=block, return_kl=True,
+            order=order)
     # tiled: the fused step's plain twins, streamed in ``block`` rows (the
     # reference's _tiled_grad_kl: Z first, then forces and KL partials)
     st = torch.stack([stats.beta, stats.shift, stats.zp, stats.w], 1)
@@ -525,7 +531,10 @@ def run_tsne(x: torch.Tensor, cfg: TsneConfig,
         def grad_fn(y, exag, g):
             return _grad_and_kl(p * exag, y)
     else:
+        # the fused kernels' row order, once a run
+        order = fused.locality_order(x) if backend == "pallas" else None
+
         def grad_fn(y, exag, g):
             return embedding_grad(x, y, stats, exag, backend=backend,
-                                  block=cfg.block)
+                                  block=cfg.block, order=order)
     return _optimize(y0, grad_fn, cfg, adaptive=False)

@@ -34,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, ...], ctypes.CDLL] = {}
 _ENTRIES: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 
@@ -57,20 +57,31 @@ def _nvcc() -> str:
                            "PATH); the CUDA kernels cannot be built")
 
 
-def target(name: str) -> Path:
+def _flags(defines: Sequence[str] = ()) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def target(name: str, defines: Sequence[str] = ()) -> Path:
     src = sources()[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(defines))
+                            .encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+def build_all(names: Optional[Iterable[str]] = None,
+              defines: Sequence[str] = ()) -> Dict[str, str]:
     """Compile every missing kernel library, one nvcc per source, all
-    started together.  Returns {name: nvcc/ptxas report}; raises
-    :class:`KernelBuildError` naming every source that failed."""
+    started together.  ``defines`` (``-D`` macros) build a source's
+    variant into a library of its own: the package builds none; the
+    step-by-step timings and card tests that hold one design step
+    against the kernel without it do.  Returns {name: nvcc/ptxas
+    report}; raises :class:`KernelBuildError` naming every source that
+    failed."""
     names = list(sources()) if names is None else list(names)
-    todo = {n: target(n) for n in names if not target(n).exists()}
-    reports = {n: "(cached) " + str(target(n)) for n in names if n not in todo}
+    todo = {n: target(n, defines) for n in names
+            if not target(n, defines).exists()}
+    reports = {n: "(cached) " + str(target(n, defines)) for n in names
+               if n not in todo}
     if not todo:
         return reports
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -79,7 +90,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     for n, out in todo.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(sources()[n])],
+            [nvcc, *_flags(defines), "-o", str(tmp), str(sources()[n])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for n, (tmp, proc) in procs.items():
@@ -95,13 +106,15 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     return reports
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (with ``defines``: that
+    variant's), built first if needed."""
+    key = (name, *defines)
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(key)
         if lib is None:
-            build_all([name])
-            lib = _LIBS[name] = ctypes.CDLL(str(target(name)))
+            build_all([name], defines)
+            lib = _LIBS[key] = ctypes.CDLL(str(target(name, defines)))
         return lib
 
 

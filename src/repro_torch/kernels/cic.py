@@ -10,13 +10,20 @@ Layouts are the reference's (``repro.kernels.cic``): ``vals`` (N, C) →
 grid (C, G, G); ``fields`` (C, G, G) → (N, C).
 
 * :func:`cic_splat_cuda` / :func:`cic_gather_cuda` launch
-  ``csrc/cic.cu`` (one thread per point; the splat adds with float
-  atomics, the gather is deterministic and reads the fields channels-
-  last, (G, G, C), one vector load a corner at C = 4).  CUDA tensors
-  only.
+  ``csrc/cic.cu`` (one thread per point), both deterministic.  The splat
+  accumulates in fixed point: a bound on the masses, taken on the card
+  (no host read), sets a power-of-two scale; each corner product is
+  rounded to an int64 multiple of that scale's inverse, the warp's points
+  of one cell are summed first, and 64-bit integer atomics add the rest,
+  so the sum is the same in any order; each cell turns into float32 once
+  at the end.  It is within 1e-5·Σ|contributions| + 1e-6 of the float64
+  plain version per cell.  The gather reads the fields channels-last,
+  (G, G, C), one vector load a corner at C = 4, and equals the float32
+  plain version bit for bit.  CUDA tensors only.
 * :func:`cic_splat_torch` / :func:`cic_gather_torch` are the plain
   versions, ``cic_splat_xla`` / ``cic_gather_xla``'s arithmetic, in the
-  dtype of ``vals`` / ``fields`` (float64 for the card's checks).
+  dtype of ``vals`` / ``fields`` (float64 for the card's checks).  The
+  splat's stays the reference's float splat: no quantization on the CPU.
 * :func:`cic_splat` / :func:`cic_gather` dispatch by device: a CUDA
   tensor launches the kernel or raises, a CPU tensor takes the twin.
 
@@ -33,9 +40,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-# (three tensors, n, c, g, out, stream): both entry points
+# (three tensors, n, c, g, out, stream): the gather; the splat takes its
+# int64 scratch before out and an atomics counter (or null) after it
 _SIG = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + \
     [ctypes.c_void_p] * 2
+SPLAT_SIG = _SIG[:6] + [ctypes.c_void_p] * 4
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 
@@ -60,6 +69,12 @@ def _check_points(op: str, i0: torch.Tensor, f: torch.Tensor,
         raise ValueError(f"{op}: tensors must be contiguous")
 
 
+def _check_aligned(op: str, i0: torch.Tensor, f: torch.Tensor) -> None:
+    if i0.data_ptr() % 8 or f.data_ptr() % 8:
+        raise ValueError(f"{op}: i0 and f must be 8-byte aligned (one "
+                         f"int2 and one float2 load a point)")
+
+
 def cic_splat_cuda(i0: torch.Tensor, f: torch.Tensor, vals: torch.Tensor,
                    grid_size: int) -> torch.Tensor:
     """(N, C) masses onto a (C, G, G) grid by the hand-written kernel."""
@@ -68,14 +83,21 @@ def cic_splat_cuda(i0: torch.Tensor, f: torch.Tensor, vals: torch.Tensor,
         raise ValueError(f"cic_splat: need vals (N, C) beside i0 "
                          f"{tuple(i0.shape)} and G >= 2; got "
                          f"{tuple(vals.shape)}, G = {grid_size}")
+    _check_aligned("cic_splat", i0, f)
     n, c = vals.shape
-    out = torch.zeros((c, grid_size, grid_size), dtype=torch.float32,
+    if n >= 2 ** 31:
+        raise ValueError(f"cic_splat: at most 2**31 - 1 points (the fixed-"
+                         f"point scale's bound); got {n}")
+    shape = (c, grid_size, grid_size)
+    if not (n and c):
+        return torch.zeros(shape, dtype=torch.float32, device=vals.device)
+    out = torch.empty(shape, dtype=torch.float32, device=vals.device)
+    acc = torch.zeros((c * grid_size * grid_size + 1,), dtype=torch.int64,
                       device=vals.device)
-    if n and c:
-        fn = _build.entry("cic", "cic_splat_f32", _SIG)
-        _build.launch("cic_splat", fn, vals.device, i0.data_ptr(),
-                      f.data_ptr(), vals.data_ptr(), n, c, grid_size,
-                      out.data_ptr())
+    fn = _build.entry("cic", "cic_splat_f32", SPLAT_SIG)
+    _build.launch("cic_splat", fn, vals.device, i0.data_ptr(), f.data_ptr(),
+                  vals.data_ptr(), n, c, grid_size, acc.data_ptr(),
+                  out.data_ptr(), None)
     return out
 
 
@@ -93,10 +115,10 @@ def cic_gather_cuda(fields: torch.Tensor, i0: torch.Tensor, f: torch.Tensor
     cl = fields.permute(1, 2, 0).contiguous()               # (G, G, C)
     _check_points("cic_gather", i0, f, cl)
     c, g = fields.shape[0], fields.shape[1]
-    if i0.data_ptr() % 8 or f.data_ptr() % 8 or (
-            c == 4 and cl.data_ptr() % 16):
-        raise ValueError("cic_gather: i0 and f must be 8-byte aligned and "
-                         "4-channel fields 16-byte aligned (vector loads)")
+    _check_aligned("cic_gather", i0, f)
+    if c == 4 and cl.data_ptr() % 16:
+        raise ValueError("cic_gather: 4-channel fields must be 16-byte "
+                         "aligned (vector loads)")
     n = i0.shape[0]
     out = torch.empty((n, c), dtype=torch.float32, device=fields.device)
     if n and c:

@@ -15,20 +15,47 @@
 // caches, so here each point does its own O(C) stencil: one thread per
 // point, no one-hot matrices.
 //
-// K2 design: one thread per point adds its 4*C products with float
-// atomicAdd straight into the zeroed (C, G, G) grid in device memory.  The
-// order of the additions into a cell depends on the schedule, so the sum
-// varies in its last bits from run to run; against the float64 plain
-// version a cell is within 1e-5 * (sum of |contributions| to it) + 1e-6.
-// A privatised grid in shared memory (3*128*128*4 B = 196 KB at G = 128,
-// which needs the dynamic shared-memory opt-in and does not fit at
-// G >= 256) is left for when measurements show contention in the way.
+// K2 design: fixed-point integer accumulation, so that the grid does not
+// depend on the schedule.  Three kernels on one stream:
+//   1. abs_bound: m = max over points of max_c |v_pc| * S(f_p), with
+//      S(f) = (|1-fx| + |fx|) (|1-fy| + |fy|) >= the point's sum of |corner
+//      weights| (1 for f in [0, 1]); one integer atomicMax a block on the
+//      float's bits (non-negative floats order as their bits do, so the max
+//      is the same in any order; NaN's bits exceed +inf's).
+//   2. splat: every thread reads m and takes the scale 2^s, s the
+//      largest integer with 2^s < 2^60 / (N m) (from frexp): so
+//      4 N m 2^s < 2^62.  Each corner product fl32(w v) is scaled by 2^s
+//      in double (exact) and rounded to the nearest int64.  A cell gets at
+//      most the products of all N points, whose magnitudes sum to at most
+//      N m (1 + 2^-22) before scaling, plus 1/2 each for the rounding:
+//      |cell| < 2^60 (1 + 2^-22) + N < 2^61 for any N < 2^31, so no cell
+//      overflows the 64-bit two's-complement sum.  The lanes of
+//      a warp whose points share a cell first sum their integers by a
+//      shuffle tree over the group (__match_any_sync), and one lane adds
+//      the group's 4C sums with 64-bit atomicAdd (zeros skipped): fewer L2
+//      atomics on hot cells.  Integer addition is associative, so the sum
+//      is the same in any order.
+//   3. to_float: each cell once, fl32(fl64(acc) * 2^-s).  A non-finite m
+//      (a NaN or infinite input) turns the whole grid into NaN.
+// The result is deterministic, bit for bit, at any N and G.  Against the
+// float64 plain version a cell is off by at most 2^-23 of the sum of
+// |contributions| to it (the products' and the last conversion's
+// roundings) plus k 2^-(s+1) for its k contributions, k 2^-(s+1) < k N m /
+// 2^60: under 1e-5 * (sum of |contributions|) + 1e-6 while N m stays well
+// under 2^60 * 1e-6 ~ 1.2e12 (path A: N = 10^6 points, |y| of a few
+// hundred).  cic_splat_torch, the plain version and the CPU path, stays
+// the reference's float splat; nothing is quantized there.
 // Bound: memory.  The call must read N*(8 + 8 + 4C) bytes and write
-// C*G*G*4; the atomics resolve in L2 (the grid is 196 KB at G = 128).  At
-// path S's shapes (N = 207 759, G = 128, C = 3) that is 1.80 us; the
-// kernel took 43.66 us (chip_smoke, NVIDIA H100 80GB HBM3, 700 W), 24x:
-// the points fall in 10 912 of 16 384 cells, up to 117 in one, and the
-// atomics on a hot cell serialise.
+// C*G*G*4: 1.80 us at path S's shapes (N = 207 759, G = 128, C = 3).  The
+// float-atomic design this replaces took 49.42 us there, index_add_ 48.05
+// us (chip_smoke, NVIDIA H100 80GB HBM3, 700.00 W): the points fall in
+// ~10 900 of 16 384 cells, up to ~117 in one, and the atomics on a hot
+// cell serialise.  This design took 28.17 us there and 177.79 us at path
+// A's (N = 10^6, G = 1024), index_add_ 49.85 and 184.65 us in the same
+// run (chip_smoke, same card): at A both are bound by ~1.2e7 scattered L2
+// atomics (2.7 points an occupied cell leave little to merge), and the
+// int64 scratch grid (8 bytes a cell, zeroed by the caller, read once
+// more by to_float) costs K2 most of its lead.
 //
 // K3 design: one thread per point reads its cell and offsets as one int2
 // and one float2, then the four corners of the fields, which it takes in
@@ -48,7 +75,7 @@
 //
 // Contract: i0 in [0, G-2] (tsne._cic_weights clips to it).  A point
 // outside it is skipped (splat) or reads as 0 (gather) instead of
-// touching memory outside the grid.
+// touching memory outside the grid.  N < 2^31 for the splat's scale.
 #include <cuda_runtime.h>
 
 namespace {
@@ -87,25 +114,139 @@ __device__ __forceinline__ float bilinear(const Corners& k, float v00,
   return acc;
 }
 
+constexpr int kBoundBlocks = 256;     // grid of abs_bound (grid-stride)
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kFiniteBits = 0x7f800000u;   // +inf; NaNs lie above
+
+// The splat's fixed-point exponent s (scale 2^s) from m's bits and N: the
+// largest s with 2^s < 2^60 / (N m); 0 for m = 0 or non-finite.
+__device__ __forceinline__ int fixed_shift(unsigned mbits, long long n) {
+  if (mbits == 0u || mbits >= kFiniteBits) return 0;
+  const double m = static_cast<double>(__uint_as_float(mbits));
+  int e;
+  const double r = frexp(0x1p60 / (static_cast<double>(n) * m), &e);
+  return r > 0.5 ? e - 1 : e - 2;            // q = r 2^e, r in [0.5, 1)
+}
+
+// m = max_p max_c |v_pc| * S(f_p) as float bits into *mbits (zeroed).
+__global__ void __launch_bounds__(kThreads)
+abs_bound_kernel(const float* __restrict__ f, const float* __restrict__ vals,
+                 long long n, int c, unsigned* __restrict__ mbits) {
+  __shared__ unsigned red[kThreads / 32];
+  unsigned best = 0u;
+  for (long long p = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       p < n; p += static_cast<long long>(gridDim.x) * kThreads) {
+    const float2 off = reinterpret_cast<const float2*>(f)[p];
+    unsigned vbits = 0u;                     // max_c |v| as bits
+    for (int ch = 0; ch < c; ++ch) {
+      vbits = max(vbits, __float_as_uint(vals[p * c + ch]) & 0x7fffffffu);
+    }
+    const float sx = __fadd_rn(fabsf(__fsub_rn(1.0f, off.x)), fabsf(off.x));
+    const float sy = __fadd_rn(fabsf(__fsub_rn(1.0f, off.y)), fabsf(off.y));
+    // S >= 1, so a NaN or inf in vals or f leaves r NaN or inf
+    const float r = __fmul_rn(__uint_as_float(vbits), __fmul_rn(sx, sy));
+    best = max(best, __float_as_uint(r) & 0x7fffffffu);
+  }
+  best = __reduce_max_sync(kFull, best);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kThreads / 32; ++w) best = max(best, red[w]);
+    atomicMax(mbits, best);
+  }
+}
+
+__device__ __forceinline__ long long to_fixed(float w, float v,
+                                              double scale) {
+  return __double2ll_rn(__dmul_rn(static_cast<double>(__fmul_rn(w, v)),
+                                  scale));
+}
+
+// Sums q[0..3] over the lanes in `peers` (the lanes holding this lane's
+// key) into the group's lowest lane, by a tree over the ranks in the group
+// (Westphal, "Voting and shuffling to optimize atomic operations", NVIDIA
+// developer blog, 2015); every lane of the warp calls it.
+__device__ __forceinline__ void group_sum(unsigned peers, long long q[4]) {
+  const int lane = threadIdx.x & 31;
+  int rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned above = peers & (0xfffffffeu << lane);
+  while (__any_sync(kFull, above != 0u)) {
+    const int next = __ffs(above);            // 1 + the next peer's lane
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long t = __shfl_sync(kFull, q[k], (next - 1) & 31);
+      if (next) q[k] += t;
+    }
+    above &= __ballot_sync(kFull, (rank & 1) == 0);   // odd ranks are done
+    rank >>= 1;
+  }
+}
+
+// The splat proper: one thread per point, the warp's points that share a
+// cell summed first.  acc (c, g, g) int64 zeroed; *atomics (or nullptr)
+// counts the 64-bit atomics issued.
 __global__ void __launch_bounds__(kThreads)
 cic_splat_kernel(const int* __restrict__ i0, const float* __restrict__ f,
                  const float* __restrict__ vals, long long n, int c, int g,
-                 float* __restrict__ out) {
+                 const unsigned* __restrict__ mbits,
+                 unsigned long long* __restrict__ acc,
+                 unsigned long long* __restrict__ atomics) {
+  // every lane stays to the end: the group sums shuffle over the warp
   const long long p = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
-  if (p >= n) return;
-  const Corners k = corners(i0[2 * p], i0[2 * p + 1], f[2 * p], f[2 * p + 1],
-                            g);
-  if (!k.ok) return;
-  const long long gg = static_cast<long long>(g) * g;
-  for (int ch = 0; ch < c; ++ch) {
-    const float v = vals[p * c + ch];
-    float* o = out + ch * gg + k.base;
-    atomicAdd(o, __fmul_rn(k.w00, v));
-    atomicAdd(o + 1, __fmul_rn(k.w01, v));
-    atomicAdd(o + g, __fmul_rn(k.w10, v));
-    atomicAdd(o + g + 1, __fmul_rn(k.w11, v));
+  Corners k{};
+  if (p < n) {
+    const int2 cell = reinterpret_cast<const int2*>(i0)[p];
+    const float2 off = reinterpret_cast<const float2*>(f)[p];
+    k = corners(cell.x, cell.y, off.x, off.y, g);
   }
+  const bool live = p < n && k.ok;
+  const unsigned peers = __match_any_sync(kFull, live ? k.base : -1LL);
+  const bool leader = live && (threadIdx.x & 31) == __ffs(peers) - 1;
+  const double scale = ldexp(1.0, fixed_shift(*mbits, n));
+  const long long gg = static_cast<long long>(g) * g;
+  const long long offs[4] = {0, 1, g, g + 1};
+  unsigned issued = 0u;
+  for (int ch = 0; ch < c; ++ch) {
+    const float v = live ? vals[p * c + ch] : 0.0f;
+    long long q[4] = {to_fixed(k.w00, v, scale), to_fixed(k.w01, v, scale),
+                      to_fixed(k.w10, v, scale), to_fixed(k.w11, v, scale)};
+    group_sum(peers, q);
+    if (leader) {
+      unsigned long long* o = acc + ch * gg + k.base;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (q[t] != 0) {
+          atomicAdd(o + offs[t], static_cast<unsigned long long>(q[t]));
+          ++issued;
+        }
+      }
+    }
+  }
+  if (atomics != nullptr) {
+    issued = __reduce_add_sync(kFull, issued);
+    if ((threadIdx.x & 31) == 0 && issued) {
+      atomicAdd(atomics, static_cast<unsigned long long>(issued));
+    }
+  }
+}
+
+// out[k] = fl32(fl64(acc[k]) * 2^-s); all NaN for a non-finite bound.
+__global__ void __launch_bounds__(kThreads)
+fixed_to_float_kernel(const long long* __restrict__ acc, long long cells,
+                      const unsigned* __restrict__ mbits, long long n,
+                      float* __restrict__ out) {
+  const long long k = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (k >= cells) return;
+  const unsigned bits = *mbits;
+  if (bits >= kFiniteBits) {
+    out[k] = __int_as_float(0x7fffffff);
+    return;
+  }
+  const double inv = ldexp(1.0, -fixed_shift(bits, n));
+  out[k] = __double2float_rn(__dmul_rn(__ll2double_rn(acc[k]), inv));
 }
 
 // fields (g, g, c) interleaved; C = 4 fixed (float4 corners and store)
@@ -152,18 +293,39 @@ unsigned int blocks_for(long long n) {
 
 }  // namespace
 
-// i0 (n, 2) int32, f (n, 2) fp32, vals (n, c) fp32, all row-major; out
-// (c, g, g) fp32, zeroed by the caller.  Launches on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// i0 (n, 2) int32 and f (n, 2) fp32, 8-byte aligned; vals (n, c) fp32, all
+// row-major; acc (c * g * g + 1) int64 zeroed by the caller (the grid in
+// fixed point, then the bound's slot); out (c, g, g) fp32; atomics a
+// zeroed uint64 counter of the 64-bit atomics, or null.  Launches three
+// kernels on `stream` and returns cudaGetLastError() after each (0 =
+// launched).
 extern "C" int cic_splat_f32(const void* i0, const void* f, const void* vals,
                              long long n, long long c, long long g,
-                             void* out, void* stream) {
+                             void* acc, void* out, void* atomics,
+                             void* stream) {
   if (n <= 0 || c <= 0) return 0;
-  cic_splat_kernel<<<blocks_for(n), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long cells = c * g * g;
+  unsigned long long* a = static_cast<unsigned long long*>(acc);
+  unsigned* mbits = reinterpret_cast<unsigned*>(a + cells);
+  const long long nb = static_cast<long long>(blocks_for(n));
+  abs_bound_kernel<<<static_cast<unsigned int>(
+                         nb < kBoundBlocks ? nb : kBoundBlocks),
+                     kThreads, 0, s>>>(static_cast<const float*>(f),
+                                       static_cast<const float*>(vals), n,
+                                       static_cast<int>(c), mbits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cic_splat_kernel<<<blocks_for(n), kThreads, 0, s>>>(
       static_cast<const int*>(i0), static_cast<const float*>(f),
       static_cast<const float*>(vals), n, static_cast<int>(c),
-      static_cast<int>(g), static_cast<float*>(out));
+      static_cast<int>(g), mbits, a,
+      static_cast<unsigned long long*>(atomics));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fixed_to_float_kernel<<<blocks_for(cells), kThreads, 0, s>>>(
+      reinterpret_cast<const long long*>(a), cells, mbits, n,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

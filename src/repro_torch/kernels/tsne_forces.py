@@ -15,7 +15,12 @@ stored by the kernels.
   ``csrc/tsne_forces.cu`` (row tiles × column splits, fp64 partials summed
   in a fixed order: deterministic).  CUDA tensors only.  Z comes back as
   a float32 tensor on the card and goes into pass 2 without a host sync;
-  the KL partials come back in float64.
+  the KL partials come back in float64.  Pass 2 skips the distances in x
+  and the exps of every 32 × 32 block of pairs whose box bound puts
+  every base-2 exponent e below −126 (2^e below 2⁻¹²⁶, where
+  ex2.approx.ftz gives +0 anyway: the same bits), which pays when rows
+  near in x sit together:
+  :func:`locality_order`.
 * :func:`tsne_z_torch` / :func:`tsne_forces_torch` are the plain
   versions: ``tsne_step_xla``'s arithmetic (Gram-identity distances, the
   same masking and KL partials) in the inputs' dtype, streamed in row
@@ -23,7 +28,8 @@ stored by the kernels.
   ``tiled`` backend of ``core.tsne`` is these twins at its own block.
 * :func:`tsne_z` / :func:`tsne_forces` / :func:`tsne_step` dispatch by
   device: a CUDA tensor launches the kernel or raises, a CPU tensor takes
-  the twin.
+  the twin.  :func:`tsne_step_fused` runs the rows in
+  :func:`locality_order` on either device.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ _Z_SIG = [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 3
 _F_SIG = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_float,
-           ctypes.c_longlong] + [ctypes.c_void_p] * 5)
+           ctypes.c_longlong] + [ctypes.c_void_p] * 6)
 _X_WIDTHS = (8, 16, 32)          # the kernel's compiled x widths
 _Y_WIDTHS = (2, 4)               # and embedding widths
 _BLOCKS_PER_SM = 8               # column splits aim at this many blocks
@@ -125,6 +131,10 @@ def tsne_forces_cuda(x: torch.Tensor, y: torch.Tensor, stats: torch.Tensor,
     kl = torch.zeros((2,), dtype=torch.float64, device=dev)
     if n:
         tiles, splits = _splits(n, dev)
+        nb = _build.entry("tsne_forces", "tsne_bound_floats",
+                          [ctypes.c_longlong] * 2)
+        bounds = torch.empty((nb(n, xp.shape[1]),), dtype=torch.float32,
+                             device=dev)
         fpart = torch.empty((splits, n, yp.shape[1]), dtype=torch.float64,
                             device=dev)
         klpart = torch.empty((tiles * splits, 2), dtype=torch.float64,
@@ -133,8 +143,8 @@ def tsne_forces_cuda(x: torch.Tensor, y: torch.Tensor, stats: torch.Tensor,
         _build.launch("tsne_forces", fn, dev, xp.data_ptr(), xp.shape[1],
                       yp.data_ptr(), yp.shape[1], st.data_ptr(), n, n_valid,
                       z.data_ptr(), float(exaggeration), splits,
-                      fpart.data_ptr(), klpart.data_ptr(), forces.data_ptr(),
-                      kl.data_ptr())
+                      bounds.data_ptr(), fpart.data_ptr(), klpart.data_ptr(),
+                      forces.data_ptr(), kl.data_ptr())
     return forces[:, :dims], kl
 
 
@@ -252,22 +262,57 @@ def step_stats(beta: torch.Tensor, zp: torch.Tensor,
     return spad
 
 
+def locality_order(x: torch.Tensor) -> torch.Tensor:
+    """A Z-order (Morton) permutation of x's rows, the same on every
+    device: rows near in x come near in the order, so the 32 rows of one
+    warp of K5b lie close together, and its box bound skips whole blocks
+    of columns far from them.  Each of the first d ≤ 63 columns is cut into 2^b bins over
+    its own range, b = min(63 // d, d − 1) ≥ 1 (7 at d = 8; coarse for
+    d < 4), and the bins' bits are interleaved into one int64 key: a
+    b-bit bin times Σ_k 2^((d−1)k) holds its bit k at (d−1)k + k = dk and
+    no two bits meet, since b ≤ d − 1.  Ties keep their row order (a
+    stable sort)."""
+    xs = x[:, :63].to(torch.float32)
+    n, d = xs.shape
+    if n == 0 or d == 0:
+        return torch.arange(n, device=x.device)
+    b = max(1, min(63 // d, d - 1))
+    lo, hi = torch.aminmax(xs, dim=0)
+    scale = (2 ** b) / (hi - lo).clamp(min=1e-30)
+    q = ((xs - lo) * scale).to(torch.int64).clamp_(0, 2 ** b - 1)
+    spread = sum(1 << ((d - 1) * k) for k in range(b))
+    mask = sum(1 << (d * k) for k in range(b))
+    key = (((q * spread) & mask)
+           << torch.arange(d, device=x.device)).sum(1)
+    return torch.argsort(key, stable=True)
+
+
 def tsne_step_fused(x: torch.Tensor, y: torch.Tensor, beta: torch.Tensor,
                     zp: torch.Tensor, *, shift: Optional[torch.Tensor] = None,
                     weights: Optional[torch.Tensor] = None,
                     exaggeration: float = 1.0, block: int = 256,
-                    return_kl: bool = False):
+                    return_kl: bool = False,
+                    order: Optional[torch.Tensor] = None):
     """One fused tSNE gradient (pass 1 + pass 2) on rows padded to a
-    multiple of ``block``; returns forces (N, dims) and, with
-    ``return_kl``, the KL of exag·P against the current Q."""
+    multiple of ``block``; returns forces (N, dims) in the caller's row
+    order and, with ``return_kl``, the KL of exag·P against the current
+    Q.  The passes see the rows in ``order``, padding rows last:
+    :func:`locality_order` of x, computed here when not given (the exact
+    tSNE path computes it once a run and passes it: it costs a few % of
+    K5b, PERF.md)."""
     n = x.shape[0]
+    if order is None:
+        order = locality_order(x)
     stats = step_stats(beta, zp, shift, weights, block)
-    f, kl_parts, z = tsne_step(pad_rows(x.to(torch.float32), block),
-                               pad_rows(y.to(torch.float32), block), stats,
-                               exaggeration, n_valid=n)
+    stats[:n] = stats[:n][order]
+    f, kl_parts, z = tsne_step(pad_rows(x.to(torch.float32)[order], block),
+                               pad_rows(y.to(torch.float32)[order], block),
+                               stats, exaggeration, n_valid=n)
+    forces = torch.empty_like(f[:n])
+    forces[order] = f[:n]
     if not return_kl:
-        return f[:n]
-    return f[:n], step_kl(kl_parts, z, exaggeration)
+        return forces
+    return forces, step_kl(kl_parts, z, exaggeration)
 
 
 def step_kl(kl_parts: torch.Tensor, z: torch.Tensor, exaggeration: float

@@ -11,15 +11,23 @@ Tolerances, as chip_smoke.py holds the kernels:
   the plain version run in float64, within 1e-5 of each row's own
   magnitude Σ|v|_row plus 1e-6; every group width L, hub rows, empty
   rows, D ∈ {1, 2, 3}; two calls equal.
-* K2 cic_splat: float atomics add in a schedule-dependent order, so per
-  cell within 1e-5·Σ|contributions to the cell| + 1e-6 of the float64
-  plain version.
+* K2 cic_splat: fixed-point integer sums, so two calls give equal bits
+  and the grid equals the kernel's arithmetic replayed on the CPU
+  (``_splat_fixed_point``) bit for bit; per cell within
+  1e-5·Σ|contributions to the cell| + 1e-6 of the float64 plain version,
+  masses scaled by 1e-4 and 1e4 too, and at path S's and path A's N and
+  G (N = 10⁶ at G = 1024).
 * K3 cic_gather: bit-exact against the float32 plain version (same
   roundings in the same order), and deterministic.
 * K5a tsne_z / K5b tsne_forces: against the float64 plain version, Z and
   the KL rtol 1e-5, forces within 1e-4 of the largest force (the
   reference's own bar, tests/test_embed_backends.py); fp64 partials
-  summed in a fixed order, so identical from call to call.
+  summed in a fixed order, so identical from call to call; on the
+  caller's rows and, through tsne_step_fused, on rows in the locality
+  order; diagonal tiles, padded tails and whole tiles of padding.  K5b
+  built without its exp skip or its per-tile masks (``-D`` variants)
+  gives the same bits as the kernel, on exponents that straddle the
+  floor 2^-126.
 * K4 knn_dist_tiles: the same +inf pattern as the float64 plain version,
   finite values within 1e-5 of |q|² + |c|² (the fp32 Gram form rounds
   at that scale), identical from call to call.
@@ -31,6 +39,9 @@ Tolerances, as chip_smoke.py holds the kernels:
   1e-5·Σ|contributions to the cell| of the float64 plain version (float
   atomics add in a schedule-dependent order).
 * K8 sketch_estimate_table: bit-exact (a product with ±1 is exact)."""
+import ctypes
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -189,19 +200,92 @@ CIC_CASES = [(1, 128, 3), (257, 128, 3), (5001, 128, 3), (3001, 1024, 3),
              (1000, 4, 1), (777, 64, 4)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,g,c", CIC_CASES)
-def test_cic_splat_kernel_matches_plain(card, n, g, c):
-    i0, f, vals = _cic_case(n, g, c, n + g)
+def _splat_fixed_point(i0, f, vals, g):
+    """K2's arithmetic replayed on the CPU: the bound m, the scale 2^s,
+    each corner product rounded to an int64 multiple of 2^-s, exact int64
+    sums, one conversion a cell (csrc/cic.cu's note)."""
+    n, c = vals.shape
+    fx, fy = f[:, 0], f[:, 1]
+    spread = ((1 - fx).abs() + fx.abs()) * ((1 - fy).abs() + fy.abs())
+    m = (vals.abs().amax(1) * spread).max().item()
+    if not math.isfinite(m):
+        return torch.full((c, g, g), float("nan"))
+    r, e = math.frexp(2.0 ** 60 / (n * m)) if m > 0 else (1.0, 1)
+    s = e - 1 if r > 0.5 else e - 2                # 2^s < 2^60 / (N m)
+    ix, iy = i0[:, 0].long(), i0[:, 1].long()
+    ok = (ix >= 0) & (ix <= g - 2) & (iy >= 0) & (iy <= g - 2)
+    ox, oy = 1 - fx, 1 - fy
+    acc = torch.zeros(c * g * g, dtype=torch.int64)
+    for (dx, dy), w in zip(((0, 0), (0, 1), (1, 0), (1, 1)),
+                           (ox * oy, ox * fy, fx * oy, fx * fy)):
+        q = torch.round((w[:, None] * vals).double() * 2.0 ** s).long()
+        cell = (ix + dx) * g + iy + dy
+        idx = cell[:, None] + torch.arange(c)[None, :] * g * g
+        acc.index_add_(0, idx[ok].reshape(-1), q[ok].reshape(-1))
+    return (acc.double() * 2.0 ** -s).float().view(c, g, g)
+
+
+def _check_splat(card, i0, f, vals, g):
+    """One K2 call on the card: deterministic, equal to the replay bit for
+    bit, within the bar of the float64 plain version."""
+    args = (i0.to(card), f.to(card), vals.to(card))
     before = LAUNCHES["cic_splat"]
-    got = cic.cic_splat(i0.to(card), f.to(card), vals.to(card), g).cpu()
+    got = cic.cic_splat(*args, g)
+    again = cic.cic_splat(*args, g)
     torch.cuda.synchronize()
-    assert LAUNCHES["cic_splat"] == before + 1
+    assert LAUNCHES["cic_splat"] == before + 2
+    assert torch.equal(got, again)
+    got = got.cpu()
+    assert got.shape == (vals.shape[1], g, g)
+    assert torch.equal(got, _splat_fixed_point(i0, f, vals, g))
     want = cic.cic_splat_torch(i0, f.double(), vals.double(), g)
     scale = cic.cic_splat_torch(i0, f.double(), vals.double().abs(), g)
     err = (got.double() - want).abs()
-    assert got.shape == (c, g, g)
     assert bool((err <= 1e-5 * scale + 1e-6).all()), err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,g,c", CIC_CASES)
+@pytest.mark.parametrize("mass", [1e-4, 1.0, 1e4])
+def test_cic_splat_kernel_matches_plain(card, n, g, c, mass):
+    i0, f, vals = _cic_case(n, g, c, n + g)
+    _check_splat(card, i0, f, vals * mass, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,g,spread", [(207_759, 128, 30.0),
+                                        (1_000_000, 1024, 100.0)])
+def test_cic_splat_at_the_paths_shapes(card, n, g, spread):
+    """Path S's and path A's N and G, the masses (1, y_x, y_y) that
+    fft_repulsion splats, y as wide as those paths' maps."""
+    rng = np.random.default_rng(n)
+    y = torch.from_numpy((rng.normal(size=(n, 2)) * spread
+                          ).astype(np.float32))
+    i0, f, _ = tsne._cic_weights(y, g)
+    vals = torch.stack([torch.ones(n), y[:, 0], y[:, 1]], 1)
+    _check_splat(card, i0.contiguous(), f.contiguous(), vals, g)
+
+
+@pytest.mark.cuda
+def test_cic_splat_non_finite_mass_poisons_the_grid(card):
+    i0, f, vals = _cic_case(100, 16, 3, 1)
+    vals[5, 1] = float("inf")
+    got = cic.cic_splat(i0.to(card), f.to(card), vals.to(card), 16)
+    assert bool(torch.isnan(got).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,g", [(5001, 128), (20_000, 1024)])
+def test_fft_repulsion_twice_gives_equal_bits(card, n, g):
+    rng = np.random.default_rng(g)
+    y = torch.from_numpy((rng.normal(size=(n, 2)) * 20).astype(np.float32)
+                         ).to(card)
+    rep, z = tsne.fft_repulsion(y, g)
+    rep2, z2 = tsne.fft_repulsion(y, g)
+    torch.cuda.synchronize()
+    assert torch.equal(rep, rep2) and torch.equal(z, z2)
+    _, zw = tsne.fft_repulsion(y.cpu(), g)        # the CPU path's float splat
+    assert abs(z.item() - zw.item()) <= 1e-4 * zw.item()
 
 
 @pytest.mark.cuda
@@ -241,9 +325,8 @@ def test_cic_gather_channels_last_view_bit_for_bit(card, n, g, c):
                                                         i0, f))
 
 
-def _tsne_case(n, dh, dims, seed, block=128):
-    """Padded fused-step inputs: clustered x, spread y, calibrated stats
-    with random weights; rows past n are padding (w = 0, zp = 1)."""
+def _tsne_inputs(n, dh, dims, seed):
+    """Clustered x, spread y, calibrated stats with random weights."""
     rng = np.random.default_rng(seed)
     cent = rng.uniform(-3, 3, size=(4, dh))
     x = (cent[rng.integers(0, 4, n)] + 0.3 * rng.normal(size=(n, dh)))
@@ -251,6 +334,12 @@ def _tsne_case(n, dh, dims, seed, block=128):
     y = torch.from_numpy((rng.normal(size=(n, dims)) * 3).astype(np.float32))
     w = torch.from_numpy(rng.uniform(1, 100, n).astype(np.float32))
     st = tsne.calibrate_stats(x, min(30.0, max(n - 1, 1) / 3), weights=w)
+    return x, y, st
+
+
+def _tsne_case(n, dh, dims, seed, block=128):
+    """Padded fused-step inputs; rows past n are padding (w = 0, zp = 1)."""
+    x, y, st = _tsne_inputs(n, dh, dims, seed)
     stats = tf.step_stats(st.beta, st.zp, st.shift, st.w, block)
     return tf.pad_rows(x, block), tf.pad_rows(y, block), stats
 
@@ -284,6 +373,110 @@ def test_tsne_kernels_match_plain(card, n, dh, dims, exag):
     klw = tf.step_kl(pw, zw, exag).item()
     assert abs(kl - klw) <= 1e-5 * max(1.0, abs(klw))
     assert bool((f[n:] == 0).all())
+
+
+def _check_forces(f, parts, z, x, y, stats, exag, n):
+    """Forces, Z and KL against the float64 plain versions."""
+    zw = tf.tsne_z_torch(y.double(), n)
+    fw, pw = tf.tsne_forces_torch(x.double(), y.double(), stats.double(),
+                                  zw, exag, n)
+    assert abs(z.item() - zw.item()) <= 1e-5 * zw.item()
+    scale = fw.abs().max().item()
+    assert (f.cpu().double() - fw[:f.shape[0]]).abs().max().item() \
+        <= 1e-4 * scale
+    kl = tf.step_kl(parts, z, exag).item()
+    klw = tf.step_kl(pw, zw, exag).item()
+    assert abs(kl - klw) <= 1e-5 * max(1.0, abs(klw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,block", [(1300, 512), (6000, 512), (129, 128)])
+def test_tsne_forces_padded_tail_and_diagonal_tiles(card, n, block):
+    """n_valid not a multiple of 128: the diagonal tiles, a tile half
+    valid and half padding, and whole tiles of padding rows."""
+    x, y, stats = _tsne_case(n, 8, 2, n, block)
+    xd, yd, sd = x.to(card), y.to(card), stats.to(card)
+    f, parts, z = tf.tsne_step(xd, yd, sd, 12.0, n_valid=n)
+    f2, parts2, _ = tf.tsne_step(xd, yd, sd, 12.0, n_valid=n)
+    torch.cuda.synchronize()
+    assert torch.equal(f, f2) and torch.equal(parts, parts2)
+    assert bool((f[n:] == 0).all())
+    _check_forces(f, parts, z, x, y, stats, 12.0, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exag", [1.0, 12.0])
+def test_tsne_fused_step_in_both_row_orders(card, exag):
+    """K5b on the caller's rows and, through tsne_step_fused, on rows in
+    the locality order, forces handed back in the caller's order: both
+    against the plain version, the fused step deterministic."""
+    n = 3001
+    x, y, st = _tsne_inputs(n, 8, 2, 11)
+    stats = tf.step_stats(st.beta, st.zp, st.shift, st.w, 128)
+    xp, yp = tf.pad_rows(x, 128), tf.pad_rows(y, 128)
+    f, parts, z = tf.tsne_step(xp.to(card), yp.to(card), stats.to(card),
+                               exag, n_valid=n)
+    _check_forces(f[:n], parts, z, xp, yp, stats, exag, n)
+    args = [t.to(card) for t in (x, y, st.beta, st.zp)]
+    kw = dict(shift=st.shift.to(card), weights=st.w.to(card),
+              exaggeration=exag, block=128, return_kl=True)
+    before = LAUNCHES["tsne_forces"]
+    fm, klm = tf.tsne_step_fused(*args, **kw)
+    fm2, klm2 = tf.tsne_step_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["tsne_forces"] == before + 2
+    assert torch.equal(fm, fm2) and torch.equal(klm, klm2)
+    zw = tf.tsne_z_torch(yp.double(), n)
+    fw, pw = tf.tsne_forces_torch(xp.double(), yp.double(), stats.double(),
+                                  zw, exag, n)
+    assert (fm.cpu().double() - fw[:n]).abs().max().item() \
+        <= 1e-4 * fw.abs().max().item()
+    klw = tf.step_kl(pw, zw, exag).item()
+    assert abs(klm.item() - klw) <= 1e-5 * max(1.0, abs(klw))
+
+
+def _forces_built_with(monkeypatch, define, *args):
+    """tsne_forces_cuda through the kernel built with ``-D<define>``."""
+    from repro_torch.kernels import _build
+    fn = getattr(_build.load("tsne_forces", (define,)), "tsne_forces_f32")
+    fn.argtypes, fn.restype = tf._F_SIG, ctypes.c_int
+    entry = _build.entry
+    with monkeypatch.context() as m:
+        m.setattr(_build, "entry", lambda name, sym, sig: fn
+                  if sym == "tsne_forces_f32" else entry(name, sym, sig))
+        return tf.tsne_forces_cuda(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ordered", [False, True])
+def test_tsne_forces_steps_change_no_bit(card, monkeypatch, ordered):
+    """Pairs whose exponents straddle the floor: with beta scaled by 5,
+    3.7 % of the pairs have an exponent -beta d^2 - shift in
+    [ln 2^-126, ln 2^-100] and 1.4 % in [ln 2^-150, ln 2^-126), ln 2^-126
+    = -87.3365; the warps of the locality order skip the exps of ~72 % of
+    their columns, those of the caller's order almost none.  The kernel
+    with the warp skip equals the
+    kernel built without it bit for bit (a skipped 2^e is the +0 that
+    ex2.approx.ftz returns below 2^-126), and so does the kernel built
+    with every tile masked; all within tolerance of the plain version."""
+    n = 2000
+    x, y, st = _tsne_inputs(n, 8, 2, 12)
+    beta = st.beta * 5.0
+    if ordered:
+        o = tf.locality_order(x)
+        x, y, beta = x[o], y[o], beta[o]
+        st = tsne.PointStats(beta, st.shift[o], st.zp[o], st.w[o])
+    stats = tf.step_stats(beta, st.zp, st.shift, st.w, 128)
+    d = [t.to(card) for t in (tf.pad_rows(x, 128), tf.pad_rows(y, 128),
+                              stats)]
+    z = tf.tsne_z_cuda(d[1], n)
+    args = (*d, z, 12.0, n)
+    f, parts = tf.tsne_forces_cuda(*args)
+    for define in ("SNS_K5B_NO_EXP_SKIP", "SNS_K5B_NO_TILE_MASKS"):
+        g, gparts = _forces_built_with(monkeypatch, define, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(f, g) and torch.equal(parts, gparts), define
+    _check_forces(f[:n], parts, z, *[t.cpu() for t in d], 12.0, n)
 
 
 @pytest.mark.cuda

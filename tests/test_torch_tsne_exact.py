@@ -153,6 +153,63 @@ def test_fused_step_twins_match_reference_on_padded_rows():
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize("d", [1, 3, 8, 32])
+def test_locality_order_is_a_deterministic_permutation(d):
+    """Every row once, the same order twice, ties (duplicate rows, a
+    constant column) in row order; on clustered 8-D rows the order keeps
+    each blob together."""
+    rng = np.random.default_rng(d)
+    cent = rng.uniform(-3, 3, size=(10, d))
+    lab = rng.integers(0, 10, 600)
+    x = (cent[lab] + 0.1 * rng.normal(size=(600, d))).astype(np.float32)
+    x[50:60] = x[40]
+    x[:, 0] = x[:, 0] if d == 1 else 2.0
+    order = tf.locality_order(torch.from_numpy(x))
+    assert order.dtype == torch.int64
+    assert torch.equal(torch.sort(order).values, torch.arange(600))
+    assert torch.equal(order, tf.locality_order(torch.from_numpy(x)))
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(600)
+    dup = pos[[40, *range(50, 60)]]
+    assert bool((dup[1:] > dup[:-1]).all())
+    if d == 8:
+        changes = (lab[order.numpy()][1:] != lab[order.numpy()][:-1]).sum()
+        assert changes < 30
+
+
+@pytest.mark.parametrize("exag", [1.0, 12.0])
+def test_fused_step_in_locality_order_matches_reference(exag):
+    """tsne_step_fused permutes the rows into the locality order and the
+    forces back: against the reference's fused step (its Pallas kernels
+    in interpret mode) at N = 252, block 64, so four padding rows share
+    the last tile with valid ones; the order passed in gives the same
+    bits as the order computed."""
+    x, y, w = _fixture(n=252, seed=7)
+    order = tf.locality_order(torch.from_numpy(x))
+    assert not torch.equal(order, torch.arange(252))
+    stats = ref_tsne.calibrate_stats(jnp.asarray(x), 20.0,
+                                     weights=jnp.asarray(w))
+    rg, rkl = ref_ops.tsne_step_fused(
+        jnp.asarray(x), jnp.asarray(y), stats.beta, stats.zp,
+        shift=stats.shift, weights=stats.w, exaggeration=exag, block=64,
+        interpret=True, return_kl=True)
+    st = _stats(stats)
+    g, kl = tf.tsne_step_fused(
+        torch.from_numpy(x), torch.from_numpy(y), st.beta, st.zp,
+        shift=st.shift, weights=st.w, exaggeration=exag, block=64,
+        return_kl=True)
+    rg = np.asarray(rg)
+    assert g.shape == rg.shape == (252, 2)
+    assert np.abs(g.numpy() - rg).max() <= 1e-4 * np.abs(rg).max()
+    assert abs(kl.item() - float(rkl)) <= 1e-5 * abs(float(rkl))
+    # the exact path computes the order once a run and passes it
+    g2, kl2 = tf.tsne_step_fused(
+        torch.from_numpy(x), torch.from_numpy(y), st.beta, st.zp,
+        shift=st.shift, weights=st.w, exaggeration=exag, block=64,
+        return_kl=True, order=order)
+    assert torch.equal(g, g2) and torch.equal(kl, kl2)
+
+
 def test_fused_twins_dispatch_by_device_and_cuda_wrappers_raise():
     x, y, _ = _fixture(n=64, seed=5)
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
