@@ -56,7 +56,7 @@ def main() -> int:
 
     _build.build_all()
     device = torch.device("cuda")
-    pts, _, spec = make_points(device, N_POINTS)
+    pts, _, _, spec = make_points(device, N_POINTS)
     centers = torch.as_tensor(np.asarray(spec.centers(0), np.float32),
                               device=device)
     t0 = time.perf_counter()

@@ -14,7 +14,8 @@ Phases, each failing the run (non-zero exit) if it fails:
                  cells (K2 also at N = 1 and with the masses scaled by
                  1e-4 and 1e4, each deterministic); K5a/K5b at N = 6000
                  padded to 6144, rows in the caller's order and in the
-                 locality order; K4 on random tiles (window padding,
+                 locality order, K5a on 3001 equal points (Z = n(n − 1)
+                 exactly); K4 on random tiles (window padding,
                  self pairs, a half-empty last tile) at several (T, B,
                  D) and on a probe layout of N = 100 003 points; K6 at
                  N = 100 003, D ∈ {2, 8, 12} × log2_cols ∈ {6, 18, 22}
@@ -73,7 +74,9 @@ Phases, each failing the run (non-zero exit) if it fails:
                  chunks: K6 (16 launches), K7 at R 16, C 2^16 and K8 on
                  40 000 keys, each equal to its plain version;
 10. kernels    — K6, K7, K8 at the paths' shapes against the plain
-                 versions, the library calls and the bounds;
+                 versions, the library calls and the bounds; K7 on a
+                 chunk and ``index_add_`` in turns, 7 rounds, each round
+                 printed, with the adds issued and the adds a second;
 11. parity     — the sketch stage at 2^20 points on the card, bit-identical
                  to the port's CPU run given the same hash parameters; the
                  streaming sketch stage likewise (table, reservoir, count,
@@ -90,6 +93,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -114,6 +118,7 @@ CHECK_KNN_TILES = ((1, 128, 8), (37, 128, 8), (5, 200, 3), (3, 64, 64),
 RECALL_ROWS = 8192                  # path A's recall sample
 STREAM_SLICE = 1_000_003            # path I's host slices, ragged vs 65 536
 CHECK_SKETCH_QUERIES = 40_000       # K8: the CANCER candidate pool
+K7_ROUNDS = 7                       # K7 and index_add_ timed in turns
 # the sketch stage of every one-shot path: one scatter, one estimate
 ONE_SHOT_SKETCH = {"sketch_update_table": 1, "sketch_estimate_table": 1}
 # each driven path's launches, by tag (K7 and K8 run on all of them)
@@ -161,37 +166,89 @@ def device_kernels(prof):
 
 def device_ms(fn, iters: int):
     """Mean device time per call (ms): the summed duration of the CUDA
-    kernels ``iters`` calls run, from torch.profiler (CUPTI); None when
-    the profiler recorded no device time for them."""
+    kernels ``iters`` calls run, from torch.profiler (CUPTI).  A profile
+    can miss kernel records (on the card, a one-call profile came back
+    empty now and then, and earlier one-shot K7 readings held 1, 2 or 3
+    of 5 launches), so one whose count of any kernel is not a multiple
+    of ``iters`` is taken again, once; None when that one misses too or
+    the profiler recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy_us, rows = device_kernels(prof)
+        if busy_us > 0 and all(count % iters == 0 for _, count, _ in rows):
+            return busy_us / iters / 1e3
+    return None
+
+
+def busy_card_ms(fn, iters: int):
+    """Mean device time per call (ms) from CUDA events around ``iters``
+    calls queued behind a sleep kernel, so that the card never waits for
+    the host: the kernels' durations plus the card's gaps between them.
+    None when queueing the calls takes the host over 0.25 s (they wait
+    for the card, whose time the back-to-back reading then is) or the
+    sleep runs out before the host has queued them, twice."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if host_s > 0.25:
+        return None
+    cycles = int(4e9 * host_s) + 2_000_000      # ~2 GHz, twice the need
+    for _ in range(2):
+        slept, start, end = (torch.cuda.Event(enable_timing=True)
+                             for _ in range(3))
+        torch.cuda._sleep(cycles)
+        slept.record()
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
+        covered = not slept.query()
         torch.cuda.synchronize()
-    busy_us = device_kernels(prof)[0]
-    return busy_us / iters / 1e3 if busy_us > 0 else None
+        if covered:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    return None
+
+
+def card_ms(fn, iters: int):
+    """(device ms per call, how): from CUDA events with the card kept
+    busy (:func:`busy_card_ms`), or where the calls wait for the card
+    from the profiler's kernel records (:func:`device_ms`), or failing
+    both the back-to-back time.  Events first: late in a long run the
+    profiler's records proved incomplete (and a complete-looking one-shot
+    K7 profile read 1.34 ms against 1.48 ms from events)."""
+    dev = busy_card_ms(fn, iters)
+    if dev is not None:
+        return dev, "events"
+    dev = device_ms(fn, iters)
+    if dev is not None:
+        return dev, "profiler"
+    return time_cuda(fn, iters), "back-to-back"
 
 
 def timings(fns, iters: int) -> dict:
-    """Device ms and back-to-back ms of each named call.  Where the
-    profiler recorded no device time for a call, its device ms is the
-    back-to-back CUDA-event time, and ``timed_by_events`` names the calls so
-    timed."""
-    row = {}
+    """Device ms and back-to-back ms of each named call (:func:`card_ms`);
+    ``timed_by`` says how each device ms was taken."""
+    row = {"timed_by": {}}
     for key, fn in fns.items():
         if fn is None:
             row[key] = row["call_" + key] = None
             continue
-        dev = device_ms(fn, iters)
+        row[key], row["timed_by"][key] = card_ms(fn, iters)
         row["call_" + key] = time_cuda(fn, iters, warmup=2)
-        if dev is None:
-            row.setdefault("timed_by_events", []).append(key)
-            dev = row["call_" + key]
-        row[key] = dev
     return row
 
 
@@ -461,6 +518,16 @@ def phase_check(device):
                 f"padded to {xp.shape[0]}, exag {exag}, {tag} order: force "
                 f"max_abs_err {f_err:.3e}, Z rel {z_rel:.3e}, KL rel "
                 f"{kl_rel:.3e}; deterministic")
+    from repro_torch.kernels import tsne_forces as tf
+    same = torch.zeros((3072, 2), device=device)
+    same[:3001] = 1.5
+    z_same = tf.tsne_z_cuda(same, 3001).item()
+    if z_same != 3001 * 3000:
+        raise AssertionError(f"tsne_z on 3001 equal points: {z_same}, not "
+                             f"{3001 * 3000}")
+    log(f"[check] tsne_z on 3001 equal points padded to 3072: Z "
+        f"{z_same:.0f} = n(n - 1) exactly (off-diagonal tiles doubled, "
+        f"diagonal tiles without j = i)")
     from repro_torch.core import ann
     for t, b, d in CHECK_KNN_TILES:
         err, rel = check_knn_tile(*knn_tile_inputs(device, t, b, d, t + b))
@@ -1184,10 +1251,18 @@ def phase_tsne_exact(device, pts, warm, spec):
     k5a = timings({"ms": lambda: tf.tsne_z_cuda(yo, n),
                    "plain_ms": lambda: tf.tsne_z_torch(yo, n),
                    "library_ms": None}, 10)
+    # Z is symmetric: the function needs each valid unordered pair's
+    # reciprocal and 3 dims + 1 flops once; the first kernel's bound
+    # counted every ordered pair
     k5a["bound_ms"], k5a["bound_by"] = op_bound_ms(
+        npad * dims * 4 + 4, flops=pairs // 2 * (3 * dims + 1),
+        sfu=pairs // 2)
+    k5a["bound_ordered_pairs_ms"], _ = op_bound_ms(
         npad * dims * 4 + 4, flops=pairs * (3 * dims + 1), sfu=pairs)
     k5a["max_abs_err"] = z_rel * z.item()
-    log_row("tsne_z", k5a)
+    log_row("tsne_z", k5a, f"; bounds: each unordered pair once "
+            f"{us(k5a['bound_ms'])} us ({pairs // 2} pairs), every ordered "
+            f"pair {us(k5a['bound_ordered_pairs_ms'])} us")
     k5b = timings({
         "ms": lambda: tf.tsne_forces_cuda(xo, yo, so, z, 1.0, n),
         "plain_ms": lambda: tf.tsne_forces_torch(xo, yo, so, z, 1.0, n),
@@ -1643,20 +1718,61 @@ def phase_sketch_kernels(device, pts, cfg, state, runs):
         err = check_sketch_update(hp, hi, lo, v, l2c, True)
         table = torch.zeros((r, 1 << l2c), device=device)
         flat = table.view(-1)
-        row = timings({
-            "ms": lambda: su.sketch_update_cuda(table, hp, hi, lo, v),
-            "plain_ms": lambda: su.sketch_update_torch(table, hp, hi, lo, v),
-            "library_ms": lambda: flat.index_add_(0, idx, vals)}, iters)
+
+        def kernel():
+            return su.sketch_update_cuda(table, hp, hi, lo, v)
+
+        def plain():
+            return su.sketch_update_torch(table, hp, hi, lo, v)
+
+        def library():
+            return flat.index_add_(0, idx, vals)
         n, n_live = hi.shape[0], live.shape[0]
+        adds = n_live * r
+        if side == "chunk":
+            # the kernel and index_add_ in turns, device time a round
+            row = timings({"plain_ms": plain}, iters)
+            turns = {"ms": [], "library_ms": []}
+            hows = []
+            for _ in range(K7_ROUNDS):
+                for key, fn in (("ms", kernel), ("library_ms", library)):
+                    t, how = card_ms(fn, iters)
+                    turns[key].append(t)
+                    hows.append(how)
+            pairs = list(zip(turns["ms"], turns["library_ms"]))
+            for k, (tk, tl) in enumerate(pairs):
+                log(f"[kernels] sketch_update_table chunk, round {k + 1} of "
+                    f"{K7_ROUNDS}: kernel {us(tk)} us ({hows[2 * k]}), "
+                    f"index_add_ {us(tl)} us ({hows[2 * k + 1]}) (device "
+                    f"time a call, {iters} calls each)")
+            for key, ts in turns.items():
+                row[key] = statistics.median(ts)
+                row[key + "_rounds"] = ts
+            row["call_ms"] = time_cuda(kernel, iters)
+            row["call_library_ms"] = time_cuda(library, iters)
+            row["rounds_kernel_ahead"] = sum(tk < tl for tk, tl in pairs)
+            row["timed_by"].update(
+                ms=", ".join(sorted(set(hows[0::2]))),
+                library_ms=", ".join(sorted(set(hows[1::2]))))
+        else:
+            row = timings({"ms": kernel, "plain_ms": plain,
+                           "library_ms": library}, iters)
         nbytes = n * 4 + n_live * 16 + cells * 8
         row["bound_ms"], row["bound_by"] = op_bound_ms(nbytes)
         row["max_abs_err"] = err
+        row["adds"] = adds
         row["shapes"] = {"n": n, "n_live": n_live, "cells": cells, "r": r,
                          "log2_cols": l2c}
         log_row(f"sketch_update_table {side}", row,
                 f"; {n} run slots, {n_live} live, {cells} cells touched: "
-                f"{nbytes / 1e6:.2f} MB; library = index_add_ of the live "
-                f"runs' precomputed buckets and signed values (no hash)")
+                f"{nbytes / 1e6:.2f} MB; {adds} adds issued (live x R), "
+                f"{adds / (row['ms'] * 1e-3) / 1e9:.1f}e9 adds/s by the "
+                f"kernel, {adds / (row['library_ms'] * 1e-3) / 1e9:.1f}e9 "
+                f"by the library; library = index_add_ of the live runs' "
+                f"precomputed buckets and signed values (no hash)"
+                + (f"; medians of {K7_ROUNDS} rounds, the kernel ahead in "
+                   f"{row['rounds_kernel_ahead']}" if side == "chunk"
+                   else ""))
         sides[side] = row
         del b, s, idx, vals, table, flat
 

@@ -118,16 +118,18 @@ def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
         return lib
 
 
-def entry(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+def entry(name: str, symbol: str, argtypes: Sequence,
+          restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C function ``symbol`` of ``csrc/<name>.cu`` (built and loaded
-    at first use) with its argument types set; it returns a CUDA error
-    code, 0 when its kernels were launched."""
+    at first use) with its argument and result types set; a launching
+    function returns a CUDA error code, 0 when its kernels were
+    launched."""
     key = (name, symbol)
     fn = _ENTRIES.get(key)
     if fn is None:
         fn = getattr(load(name), symbol)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _ENTRIES[key] = fn
     return fn
 

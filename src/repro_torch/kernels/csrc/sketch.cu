@@ -12,9 +12,10 @@
 // tensors (core/u64.py, the reference's limb arithmetic); Hopper has
 // native 64-bit integer multiplies, so here a key and a parameter are one
 // uint64 each and the limb arithmetic disappears.  K6 and K7 share
-// mulshift() below.  Parameters arrive as the (6, R) int64 tensor
-// [a1_hi, a1_lo, a2_hi, a2_lo, b_hi, b_lo] and are staged in shared
-// memory as R (a1, a2, b) triples by every block.
+// mulshift() below.  Parameters arrive as the six (R,) int64 limb
+// tensors of hashing.MulShiftParams [a1_hi, a1_lo, a2_hi, a2_lo, b_hi,
+// b_lo], one pointer each (no per-call stacking), and are staged in
+// shared memory as R (a1, a2, b) triples by every block.
 //
 // K6 replaces repro/kernels/hash_points.py:_kernel (the Pallas TPU kernel
 // behind ops.hash_points), which quantized, packed and hashed a
@@ -44,15 +45,21 @@
 // is 0 adds nothing and is skipped: a table that starts at +0.0 never
 // holds -0.0 (x + (-x) is +0.0 under round-to-nearest), so skipping an
 // add of +-0 changes no bit, and the dead slots of a run-length-encoded
-// chunk (count 0, all on the chunk's largest key) cost no atomics on one
-// hot cell.  Integer-valued sums are exact in any order while every
-// partial sum stays below 2^24, so integer tables equal the plain
-// version's bit for bit; weighted values agree to fp32 rounding.  The
-// call adds into the table it is given (the wrapper allocates nothing).
-// Bound: memory.  The call reads N*(8 + 8 + 4) bytes of keys and values
-// and read-modify-writes at most R*N cells of 4 bytes; the table (16 MiB
-// at R = 16, C = 2^18) stays in the 50 MB L2, so the adds cost L2, not
-// device-memory, bandwidth.
+// chunk (count 0, all on the chunk's largest key, a suffix) cost one load
+// each and no atomics on one hot cell.  Integer-valued sums are exact in
+// any order while every partial sum stays below 2^24, so integer tables
+// equal the plain version's bit for bit; weighted values agree to fp32
+// rounding.  The call adds into the table it is given (the wrapper
+// allocates nothing).
+// Bound: memory.  The call reads N * 4 bytes of values, 16 bytes of keys
+// for each live item, and read-modify-writes the touched cells of 4 bytes
+// (at most R per live item); the table (16 MiB at R = 16, C = 2^18) stays
+// in the 50 MB L2, so the adds cost L2, not device-memory, bandwidth.  In
+// practice the L2's rate of scattered fp32 atomics bounds both a chunk and
+// the one-shot call, not parallelism: a layout that gave a chunk's live
+// items 4-16x the warps (a warp a group of 32 items and a slice of the
+// rows) was no faster at any slice, and the kernel with its adds removed
+// takes a third of the time (chip_k7_layouts.py, PERF.md section 6).
 //
 // K8 replaces repro/kernels/sketch_estimate.py:_kernel (behind
 // ops.sketch_estimate_mxu).  A TPU gathers slowly, so that kernel
@@ -76,31 +83,42 @@ struct MulShift {
   uint64_t a1, a2, b;
 };
 
+// The six (R,) int64 limb arrays of hashing.MulShiftParams.
+struct ParamLimbs {
+  const long long* a1_hi;
+  const long long* a1_lo;
+  const long long* a2_hi;
+  const long long* a2_lo;
+  const long long* b_hi;
+  const long long* b_lo;
+};
+
+__device__ __forceinline__ uint64_t join(const long long* hi,
+                                         const long long* lo, int r) {
+  return (static_cast<uint64_t>(static_cast<uint32_t>(hi[r])) << 32) |
+         static_cast<uint32_t>(lo[r]);
+}
+
+// R triples into shared memory; every thread of the block takes part,
+// then the block waits for the table.
+__device__ __forceinline__ void stage_params(const ParamLimbs& p, int rows,
+                                             MulShift* out) {
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    out[r] = MulShift{join(p.a1_hi, p.a1_lo, r), join(p.a2_hi, p.a2_lo, r),
+                      join(p.b_hi, p.b_lo, r)};
+  }
+  __syncthreads();
+}
+
 __device__ __forceinline__ uint64_t mulshift(const MulShift& p,
                                              uint64_t key) {
   return p.a1 * (key >> 32) + p.a2 * (key & 0xFFFFFFFFull) + p.b;
 }
 
-// (6, R) int64 limbs -> R triples in shared memory; every thread of the
-// block takes part, then the block waits for the table.
-__device__ __forceinline__ void stage_params(const long long* __restrict__ p,
-                                             int rows, MulShift* out) {
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    auto limb = [&](int i) {
-      return static_cast<uint64_t>(static_cast<uint32_t>(p[i * rows + r]));
-    };
-    out[r].a1 = (limb(0) << 32) | limb(1);
-    out[r].a2 = (limb(2) << 32) | limb(3);
-    out[r].b = (limb(4) << 32) | limb(5);
-  }
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(kThreads)
 hash_points_kernel(const float* __restrict__ points,
                    const float* __restrict__ lo,
-                   const float* __restrict__ inv,
-                   const long long* __restrict__ params,
+                   const float* __restrict__ inv, ParamLimbs params,
                    long long* __restrict__ buckets,
                    long long* __restrict__ signs, long long n, int d,
                    int rows, int bins, int bits, int log2_cols) {
@@ -127,8 +145,7 @@ hash_points_kernel(const float* __restrict__ points,
 __global__ void __launch_bounds__(kThreads)
 sketch_update_kernel(const long long* __restrict__ key_hi,
                      const long long* __restrict__ key_lo,
-                     const float* __restrict__ values,
-                     const long long* __restrict__ params,
+                     const float* __restrict__ values, ParamLimbs params,
                      float* __restrict__ table, long long n, int rows,
                      int log2_cols) {
   extern __shared__ MulShift hp[];
@@ -166,41 +183,60 @@ unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
+ParamLimbs limbs(const void* a1_hi, const void* a1_lo, const void* a2_hi,
+                 const void* a2_lo, const void* b_hi, const void* b_lo) {
+  return ParamLimbs{static_cast<const long long*>(a1_hi),
+                    static_cast<const long long*>(a1_lo),
+                    static_cast<const long long*>(a2_hi),
+                    static_cast<const long long*>(a2_lo),
+                    static_cast<const long long*>(b_hi),
+                    static_cast<const long long*>(b_lo)};
+}
+
 }  // namespace
 
-// points (n, d) f32, lo/inv (d,) f32, params (6, rows) int64 limbs,
-// buckets/signs (rows, n) int64 out.  Returns cudaGetLastError().
+// points (n, d) f32, lo/inv (d,) f32, the six (rows,) int64 limb arrays
+// of the hash params, buckets/signs (rows, n) int64 out.  Returns
+// cudaGetLastError().
 extern "C" int hash_points_f32(const void* points, const void* lo,
-                               const void* inv, const void* params,
-                               void* buckets, void* signs, long long n,
-                               long long d, long long rows, long long bins,
-                               long long bits, long long log2_cols,
-                               void* stream) {
+                               const void* inv, const void* a1_hi,
+                               const void* a1_lo, const void* a2_hi,
+                               const void* a2_lo, const void* b_hi,
+                               const void* b_lo, void* buckets, void* signs,
+                               long long n, long long d, long long rows,
+                               long long bins, long long bits,
+                               long long log2_cols, void* stream) {
   if (n <= 0) return 0;
   hash_points_kernel<<<blocks_for(n), kThreads, rows * sizeof(MulShift),
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(points), static_cast<const float*>(lo),
-      static_cast<const float*>(inv), static_cast<const long long*>(params),
+      static_cast<const float*>(inv),
+      limbs(a1_hi, a1_lo, a2_hi, a2_lo, b_hi, b_lo),
       static_cast<long long*>(buckets), static_cast<long long*>(signs), n,
       static_cast<int>(d), static_cast<int>(rows), static_cast<int>(bins),
       static_cast<int>(bits), static_cast<int>(log2_cols));
   return static_cast<int>(cudaGetLastError());
 }
 
-// key_hi/key_lo (n,) int64 holding uint32, values (n,) f32, params
-// (6, rows) int64 limbs; adds into table (rows, 2^log2_cols) f32 in place.
+// key_hi/key_lo (n,) int64 holding uint32, values (n,) f32, the six
+// (rows,) int64 limb arrays of the hash params; adds into table
+// (rows, 2^log2_cols) f32 in place.  Returns cudaGetLastError().
 extern "C" int sketch_update_f32(const void* key_hi, const void* key_lo,
-                                 const void* values, const void* params,
-                                 void* table, long long n, long long rows,
-                                 long long log2_cols, void* stream) {
+                                 const void* values, const void* a1_hi,
+                                 const void* a1_lo, const void* a2_hi,
+                                 const void* a2_lo, const void* b_hi,
+                                 const void* b_lo, void* table, long long n,
+                                 long long rows, long long log2_cols,
+                                 void* stream) {
   if (n <= 0) return 0;
   sketch_update_kernel<<<blocks_for(n), kThreads, rows * sizeof(MulShift),
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(key_hi),
       static_cast<const long long*>(key_lo),
       static_cast<const float*>(values),
-      static_cast<const long long*>(params), static_cast<float*>(table), n,
-      static_cast<int>(rows), static_cast<int>(log2_cols));
+      limbs(a1_hi, a1_lo, a2_hi, a2_lo, b_hi, b_lo),
+      static_cast<float*>(table), n, static_cast<int>(rows),
+      static_cast<int>(log2_cols));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,19 +18,35 @@
 // parallel here, and with Dh = 8 and 2 output dims a pair is ~50 flops and
 // 3-5 special-function ops, far too thin for tensor cores.
 //
-// Design: a block of kRows threads owns kRows rows i (one row per thread,
-// its x_i, y_i and stats in registers) and walks one of `splits` column
-// ranges in tiles of kTile columns staged in shared memory (x_j, y_j and
-// [-beta_j log2 e, -shift_j log2 e, w_j / (2 zp_j)]); every lane of a warp
-// reads the same column, so the shared loads are broadcasts.  The grid is
-// (row tiles, splits): splitting the columns gives the card ~8 blocks per
-// SM at the main path's N = 46k, where one split would leave 362 blocks
-// for 132 SMs.
+// K5b's design: a block of kRows threads owns kRows rows i (one row per
+// thread, its x_i, y_i and stats in registers) and walks one of `splits`
+// column ranges in tiles of kTile columns staged in shared memory (x_j,
+// y_j and [-beta_j log2 e, -shift_j log2 e, w_j / (2 zp_j)]); every lane
+// of a warp reads the same column, so the shared loads are broadcasts.
+// The grid is (row tiles, splits): splitting the columns gives the card
+// ~8 blocks per SM at the main path's N = 46k, where one split would
+// leave 362 blocks for 132 SMs.
 // Each thread sums a tile in fp32 registers and adds the tile's sum into
 // fp64 accumulators; the per-(block, split) partial forces and the
-// per-block Z / KL partials go to fp64 scratch, and a second small kernel
+// per-block KL partials go to fp64 scratch, and a second small kernel
 // sums them in a fixed order.  No float atomics: Z, the forces and the KL
 // partials are identical from run to run.
+//
+// K5a's redesign (PERF.md keeps its times): Z is symmetric, so the grid
+// walks only the tile pairs (a, b) with b >= a of 512-row tiles, one
+// block each, numbered along the triangle (the blocks are alike, so the
+// load stays balanced): an off-diagonal tile adds twice its fp64 partial
+// (an exact doubling), a diagonal tile its j != i pairs once.  At path
+// E's N that halves the reciprocals, 2.15e9 -> 1.07e9.  A thread owns 4
+// rows, so one broadcast shared load of y_j (a float2 at dims 2) serves 4
+// pairs; interior tiles take no per-pair test, the diagonal and padded
+// ones 32-bit tile-local tests (as K5b's step 1); 1 / (1 + d^2) is
+// rcp.approx.ftz (K5b's step 2).  Each row sums 128 columns in fp32, then
+// into fp64; the per-tile-pair partials are summed in a fixed order, so
+// two calls give equal bits.  The first form ran every ordered
+// pair with two 64-bit index tests and the IEEE reciprocal: 2.78 ms at
+// path E; this one takes 0.33 ms against a 0.26 ms bound, both on an
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6).
 //
 // Distances: the direct difference sum_d (a_d - b_d)^2, not the
 // reference's Gram identity max(|a|^2 - 2 a.b + |b|^2, 0), which loses
@@ -76,15 +92,17 @@
 // bytes, a few MB).  Per valid pair K5b does 3 Dh + 5 dims + 11 fp32
 // flops and 1 reciprocal, 2 exps where an exponent reaches -126, and 2
 // logs and 4 flops more where P > 0 (the same pairs); K5a does 3 dims + 1
-// flops and 1 reciprocal.  On an H100 the special-function units deliver
-// 16 results per clock per SM (CUDA C Programming Guide, compute
-// capability 9.0), the fp32 units 67 TFLOP/s.  At path E's shapes (N =
-// 46 348, Dh = 8, dims = 2; 10.0 % of the pairs reach -126) that bounds
-// K5a at 0.51 ms and K5b at 0.72 ms counting the distances in x and the
-// exps only where needed (1.46 ms counting every distance in x).
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6), rows
-// in the caller's order / the locality order: 7.16 / 6.28 ms before steps
-// 1-3, 6.44 / 5.71 with step 1, 5.15 / 4.38 with steps 1-2,
+// flops and 1 reciprocal per unordered pair.  On an H100 the
+// special-function units deliver 16 results per clock per SM (CUDA C
+// Programming Guide, compute capability 9.0), the fp32 units 67 TFLOP/s.
+// At path E's shapes (N = 46 348, Dh = 8, dims = 2; 10.0 % of the pairs
+// reach -126) that bounds K5a at 0.26 ms counting each unordered pair's
+// reciprocal once (0.51 ms over every ordered pair) and K5b at 0.72 ms
+// counting the distances in x and the exps only where needed (1.46 ms
+// counting every distance in x).
+// K5b measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6),
+// rows in the caller's order / the locality order: 7.16 / 6.28 ms before
+// steps 1-3, 6.44 / 5.71 with step 1, 5.15 / 4.38 with steps 1-2,
 // 5.67 / 2.78 with all three (the kernel before them: 8.49 ms).  Step 3's
 // first form, a per-column vote that skipped only the exps, made it slower
 // (4.92 ms in the locality order): K5b is bound by its issue rate (~40
@@ -133,49 +151,6 @@ __device__ __forceinline__ long long split_lo(long long chunk) {
   return static_cast<long long>(blockIdx.y) * chunk;
 }
 
-template <int DY>
-__global__ void __launch_bounds__(kRows)
-tsne_z_partial(const float* __restrict__ y, long long n, long long n_valid,
-               long long chunk, double* __restrict__ zpart) {
-  __shared__ float sy[kTile * DY];
-  __shared__ double red[kRows / 32];
-  const long long i = static_cast<long long>(blockIdx.x) * kRows +
-                      threadIdx.x;
-  const bool row_ok = i < n_valid;
-  float yi[DY];
-#pragma unroll
-  for (int d = 0; d < DY; ++d) yi[d] = i < n ? y[i * DY + d] : 0.0f;
-  const long long j_lo = split_lo(chunk);
-  const long long j_hi = j_lo + chunk < n ? j_lo + chunk : n;
-  double acc = 0.0;
-  for (long long jt = j_lo; jt < j_hi; jt += kTile) {
-    const int cnt = static_cast<int>(j_hi - jt < kTile ? j_hi - jt : kTile);
-    __syncthreads();
-    for (int t = threadIdx.x; t < cnt * DY; t += kRows) {
-      sy[t] = y[jt * DY + t];
-    }
-    __syncthreads();
-    float part = 0.0f;
-    for (int jj = 0; jj < cnt; ++jj) {
-      const long long j = jt + jj;
-      float d2 = 0.0f;
-#pragma unroll
-      for (int d = 0; d < DY; ++d) {
-        const float df = yi[d] - sy[jj * DY + d];
-        d2 = fmaf(df, df, d2);
-      }
-      const bool ok = row_ok && j != i && j < n_valid;
-      part += ok ? __frcp_rn(1.0f + d2) : 0.0f;
-    }
-    acc += part;
-  }
-  const double total = block_sum(acc, red);
-  if (threadIdx.x == 0) {
-    zpart[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] =
-        total;
-  }
-}
-
 // 2^t by the special-function unit, its subnormal results flushed to +0:
 // exactly 0 for t < kExpFloor.
 __device__ __forceinline__ float ex2_ftz(float t) {
@@ -190,6 +165,107 @@ __device__ __forceinline__ float rcp_fast(float x) {
   float r;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
   return r;
+}
+
+// K5a: tile pairs (a, b), b >= a, of kZTile rows each; a block of
+// kZThreads threads takes one, each thread kZRows rows of tile a
+// (threadIdx.x + q * kZThreads) against every column of tile b, staged in
+// shared memory.  k = blockIdx.x walks the triangle column by column:
+// b(b + 1) / 2 <= k < (b + 1)(b + 2) / 2, a = k - b(b + 1) / 2.
+constexpr int kZThreads = 128;
+constexpr int kZRows = 4;                      // rows a thread
+constexpr int kZTile = kZThreads * kZRows;     // 512 rows, 512 columns
+constexpr int kZSub = 128;                     // columns an fp32 partial
+
+template <int DY> struct YVec;
+template <> struct YVec<2> { using T = float2; };
+template <> struct YVec<4> { using T = float4; };
+
+__device__ __forceinline__ float one_plus_d2(float2 a, float2 b) {
+  const float dx = a.x - b.x, dy = a.y - b.y;
+  return fmaf(dx, dx, fmaf(dy, dy, 1.0f));
+}
+
+__device__ __forceinline__ float one_plus_d2(float4 a, float4 b) {
+  const float d0 = a.x - b.x, d1 = a.y - b.y, d2 = a.z - b.z,
+              d3 = a.w - b.w;
+  return fmaf(d0, d0, fmaf(d1, d1, fmaf(d2, d2, fmaf(d3, d3, 1.0f))));
+}
+
+template <int DY>
+__global__ void __launch_bounds__(kZThreads)
+tsne_z_pairs(const float* __restrict__ y, long long nv,
+             double* __restrict__ zpart) {
+  using V = typename YVec<DY>::T;
+  __shared__ V sy[kZTile];
+  __shared__ double red[kZThreads / 32];
+  const long long k = blockIdx.x;
+  long long b = static_cast<long long>(
+      (sqrt(8.0 * static_cast<double>(k) + 1.0) - 1.0) * 0.5);
+  while (b * (b + 1) / 2 > k) --b;
+  while ((b + 1) * (b + 2) / 2 <= k) ++b;
+  const long long a = k - b * (b + 1) / 2;
+  const V* yv = reinterpret_cast<const V*>(y);
+  const long long r0 = a * kZTile, c0 = b * kZTile;
+  const int rows = static_cast<int>(nv - r0 < kZTile ? nv - r0 : kZTile);
+  const int cols = static_cast<int>(nv - c0 < kZTile ? nv - c0 : kZTile);
+  for (int t = threadIdx.x; t < cols; t += kZThreads) sy[t] = yv[c0 + t];
+  V yi[kZRows];
+#pragma unroll
+  for (int q = 0; q < kZRows; ++q) {
+    const int ri = threadIdx.x + q * kZThreads;
+    yi[q] = ri < rows ? yv[r0 + ri] : V{};
+  }
+  __syncthreads();
+  // a < b: tile a lies wholly below tile b, so only tile b can hold
+  // padding; a == b holds the diagonal
+  const bool diag = a == b;
+  double acc = 0.0;
+  if (!diag && cols == kZTile) {
+    // interior: no per-pair test
+    for (int j0 = 0; j0 < kZTile; j0 += kZSub) {
+      float part[kZRows] = {};
+#pragma unroll 4
+      for (int jj = j0; jj < j0 + kZSub; ++jj) {
+        const V yj = sy[jj];
+#pragma unroll
+        for (int q = 0; q < kZRows; ++q) {
+          part[q] += rcp_fast(one_plus_d2(yi[q], yj));
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kZRows; ++q) acc += part[q];
+    }
+  } else {
+    // tile-local 32-bit tests: j != i on the diagonal, columns past nv
+    // not visited, rows past nv dropped
+    int self[kZRows];
+#pragma unroll
+    for (int q = 0; q < kZRows; ++q) {
+      self[q] = diag ? static_cast<int>(threadIdx.x) + q * kZThreads : -1;
+    }
+    for (int j0 = 0; j0 < cols; j0 += kZSub) {
+      const int j1 = j0 + kZSub < cols ? j0 + kZSub : cols;
+      float part[kZRows] = {};
+      for (int jj = j0; jj < j1; ++jj) {
+        const V yj = sy[jj];
+#pragma unroll
+        for (int q = 0; q < kZRows; ++q) {
+          const float r = rcp_fast(one_plus_d2(yi[q], yj));
+          part[q] += jj != self[q] ? r : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kZRows; ++q) {
+        if (static_cast<int>(threadIdx.x) + q * kZThreads < rows) {
+          acc += part[q];
+        }
+      }
+    }
+  }
+  const double total = block_sum(acc, red);
+  // an off-diagonal tile stands for its mirror too: the doubling is exact
+  if (threadIdx.x == 0) zpart[k] = diag ? total : 2.0 * total;
 }
 
 #ifdef SNS_K5B_NO_EXP_SKIP
@@ -507,18 +583,19 @@ long long split_chunk(long long n, long long splits) {
   return (per + kTile - 1) / kTile * kTile;
 }
 
+long long z_tiles(long long nv) { return (nv + kZTile - 1) / kZTile; }
+
+long long z_tile_pairs(long long tiles) { return tiles * (tiles + 1) / 2; }
+
 template <int DY>
-cudaError_t launch_z(const float* y, long long n, long long n_valid,
-                     long long splits, double* zpart, float* z,
-                     cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned int>(row_tiles(n)),
-                  static_cast<unsigned int>(splits));
-  tsne_z_partial<DY><<<grid, kRows, 0, stream>>>(
-      y, n, n_valid, split_chunk(n, splits), zpart);
+cudaError_t launch_z(const float* y, long long nv, long long pairs,
+                     double* zpart, float* z, cudaStream_t stream) {
+  tsne_z_pairs<DY><<<static_cast<unsigned int>(pairs), kZThreads, 0,
+                     stream>>>(y, nv, zpart);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  reduce_partials<<<1, kReduceThreads, 0, stream>>>(
-      zpart, row_tiles(n) * splits, 1, nullptr, z);
+  reduce_partials<<<1, kReduceThreads, 0, stream>>>(zpart, pairs, 1,
+                                                    nullptr, z);
   return cudaGetLastError();
 }
 
@@ -566,22 +643,32 @@ extern "C" int tsne_bound_floats(long long n, long long dh) {
   return static_cast<int>(bound_groups(n) * (2 * dh + 4));
 }
 
-// y (n, dy) fp32 with dy in {2, 4}; zpart (row_tiles * splits) fp64
-// scratch; z (1) fp32 out.  Returns cudaGetLastError() after each launch
-// (0 = launched), or cudaErrorInvalidValue for an unsupported dy.
+// Partials of tsne_z_f32's scratch: the tile pairs (a, b), b >= a, of
+// the first min(n, n_valid) rows.
+extern "C" long long tsne_z_partials(long long n, long long n_valid) {
+  const long long nv = n_valid < n ? n_valid : n;
+  return nv > 0 ? z_tile_pairs(z_tiles(nv)) : 0;
+}
+
+// y (n, dy) fp32 with dy in {2, 4}, aligned to dy floats; zpart
+// (tsne_z_partials(n, n_valid)) fp64 scratch; z (1) fp32 out, left as it
+// is when no row is valid.  Returns cudaGetLastError() after each launch
+// (0 = launched), or cudaErrorInvalidValue for an unsupported dy or more
+// tile pairs than a grid holds.
 extern "C" int tsne_z_f32(const void* y, long long n, long long dy,
-                          long long n_valid, long long splits, void* zpart,
-                          void* z, void* stream) {
-  if (n <= 0 || splits <= 0) return 0;
+                          long long n_valid, void* zpart, void* z,
+                          void* stream) {
+  const long long nv = n_valid < n ? n_valid : n;
+  const long long pairs = tsne_z_partials(n, n_valid);
+  if (pairs <= 0) return 0;
+  if (pairs > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const float* yy = static_cast<const float*>(y);
   double* zp = static_cast<double*>(zpart);
   float* zz = static_cast<float*>(z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dy) {
-    case 2: return static_cast<int>(launch_z<2>(yy, n, n_valid, splits,
-                                                zp, zz, s));
-    case 4: return static_cast<int>(launch_z<4>(yy, n, n_valid, splits,
-                                                zp, zz, s));
+    case 2: return static_cast<int>(launch_z<2>(yy, nv, pairs, zp, zz, s));
+    case 4: return static_cast<int>(launch_z<4>(yy, nv, pairs, zp, zz, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -30,26 +30,30 @@ from repro_torch.core.hashing import MulShiftParams
 from repro_torch.core.quantize import GridSpec
 from repro_torch.kernels import _build
 
-# (points, lo, inv, params, buckets, signs, n, d, rows, bins, bits,
-#  log2_cols, stream)
-_SIG = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+# (points, lo, inv, six param limbs, buckets, signs, n, d, rows, bins,
+#  bits, log2_cols, stream)
+_SIG = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
 # the kernel stages R (a1, a2, b) triples of 24 bytes in shared memory,
 # which a block may hold up to 48 KB of without the opt-in
 MAX_ROWS = 2048
 
 
-def param_matrix(params: MulShiftParams) -> torch.Tensor:
-    """The (6, R) int64 limb matrix the kernels read, contiguous."""
-    return torch.stack(list(params)).to(torch.int64).contiguous()
-
-
 def check_params(op: str, params: MulShiftParams, device: torch.device
                  ) -> None:
-    if not all(p.device == device for p in params):
-        raise ValueError(f"{op}: hash params must be on {device}")
-    if not 1 <= params.rows <= MAX_ROWS:
+    """The kernels read the six (R,) limb tensors through one pointer
+    each: they must be on ``device``, int64, contiguous and of one
+    length R in [1, MAX_ROWS]."""
+    rows = params.rows
+    for p in params:
+        if p.device != device:
+            raise ValueError(f"{op}: hash params must be on {device}")
+        if p.dtype != torch.int64 or not p.is_contiguous() or \
+                p.shape != (rows,):
+            raise ValueError(f"{op}: hash params must be six contiguous "
+                             f"(R,) int64 tensors")
+    if not 1 <= rows <= MAX_ROWS:
         raise ValueError(f"{op}: rows must be in [1, {MAX_ROWS}], got "
-                         f"{params.rows}")
+                         f"{rows}")
 
 
 def check_log2_cols(op: str, log2_cols: int) -> None:
@@ -80,12 +84,12 @@ def hash_points_cuda(params: MulShiftParams, grid: GridSpec,
     signs = torch.empty((r, n), dtype=torch.int64, device=points.device)
     if n:
         lo, inv = quantize.grid_tensors(grid, points.device)
-        pm = param_matrix(params)
         fn = _build.entry("sketch", "hash_points_f32", _SIG)
         _build.launch("hash_points", fn, points.device, points.data_ptr(),
-                      lo.data_ptr(), inv.data_ptr(), pm.data_ptr(),
-                      buckets.data_ptr(), signs.data_ptr(), n, grid.dims, r,
-                      grid.bins, grid.bits_per_dim, log2_cols)
+                      lo.data_ptr(), inv.data_ptr(),
+                      *(p.data_ptr() for p in params), buckets.data_ptr(),
+                      signs.data_ptr(), n, grid.dims, r, grid.bins,
+                      grid.bits_per_dim, log2_cols)
     return buckets, signs
 
 

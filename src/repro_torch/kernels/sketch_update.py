@@ -7,8 +7,9 @@ float32 table, in place: ``sketch.update``'s scatter, and the reference's
 ``repro.kernels.sketch_update`` behind ``ops.sketch_update_fused``.
 
 * :func:`sketch_update_cuda` launches ``csrc/sketch.cu`` (one thread per
-  item, R hashes in registers, R atomic adds; the source note says what
-  bounds it).  CUDA tensors only.
+  item, R hashes in registers, R atomic adds, the hash parameters read
+  from their six limb tensors; the source note says what bounds it).
+  CUDA tensors only.
 * :func:`sketch_update_torch` is the plain version: hashes in chunks of
   items, then one ``index_add_`` a chunk on the flattened table
   (``repro.kernels.ref.sketch_update`` with the hashes taken inside).
@@ -28,11 +29,11 @@ import torch
 from repro_torch.core import hashing
 from repro_torch.core.hashing import MulShiftParams
 from repro_torch.kernels import _build
-from repro_torch.kernels.hash_points import (check_log2_cols, check_params,
-                                             param_matrix)
+from repro_torch.kernels.hash_points import check_log2_cols, check_params
 
-# (key_hi, key_lo, values, params, table, n, rows, log2_cols, stream)
-_SIG = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+# (key_hi, key_lo, values, six param limbs, table, n, rows, log2_cols,
+#  stream)
+_SIG = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
 # items hashed per pass of the plain version: (R=16, 2**21) int64
 # temporaries are 256 MiB each
 _HASH_CHUNK = 1 << 21
@@ -77,12 +78,11 @@ def sketch_update_cuda(table: torch.Tensor, params: MulShiftParams,
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("sketch_update: tensors must be contiguous")
     if n:
-        pm = param_matrix(params)
         fn = _build.entry("sketch", "sketch_update_f32", _SIG)
         _build.launch("sketch_update_table", fn, table.device,
                       key_hi.data_ptr(), key_lo.data_ptr(),
-                      values.data_ptr(), pm.data_ptr(), table.data_ptr(), n,
-                      params.rows, log2_cols)
+                      values.data_ptr(), *(p.data_ptr() for p in params),
+                      table.data_ptr(), n, params.rows, log2_cols)
     return table
 
 

@@ -12,9 +12,11 @@ padding (w = 0, zp = 1) and take part in no pair.  No N×N matrix is
 stored by the kernels.
 
 * :func:`tsne_z_cuda` / :func:`tsne_forces_cuda` launch
-  ``csrc/tsne_forces.cu`` (row tiles × column splits, fp64 partials summed
-  in a fixed order: deterministic).  CUDA tensors only.  Z comes back as
-  a float32 tensor on the card and goes into pass 2 without a host sync;
+  ``csrc/tsne_forces.cu`` (K5a: the 512-row tile pairs (a, b ≥ a) of the
+  symmetric sum, off-diagonal ones doubled; K5b: row tiles × column
+  splits; fp64 partials summed in a fixed order: deterministic).  CUDA
+  tensors only.  Z comes back as a float32 tensor on the card and goes
+  into pass 2 without a host sync;
   the KL partials come back in float64.  Pass 2 skips the distances in x
   and the exps of every 32 × 32 block of pairs whose box bound puts
   every base-2 exponent e below −126 (2^e below 2⁻¹²⁶, where
@@ -40,7 +42,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-_Z_SIG = [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 3
+_Z_SIG = [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 3
 _F_SIG = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_float,
@@ -97,14 +99,18 @@ def tsne_z_cuda(y: torch.Tensor, n_valid: Optional[int] = None
     n = y.shape[0]
     n_valid = n if n_valid is None else n_valid
     yp = _pad_cols(y, _Y_WIDTHS)
+    if yp.data_ptr() % (4 * yp.shape[1]):
+        raise ValueError(f"tsne_z: y must be aligned to its {yp.shape[1]} "
+                         f"floats a row")
     z = torch.zeros((1,), dtype=torch.float32, device=dev)
     if n:
-        tiles, splits = _splits(n, dev)
-        zpart = torch.empty((tiles * splits,), dtype=torch.float64,
+        parts = _build.entry("tsne_forces", "tsne_z_partials",
+                             [ctypes.c_longlong] * 2, ctypes.c_longlong)
+        zpart = torch.empty((parts(n, n_valid),), dtype=torch.float64,
                             device=dev)
         fn = _build.entry("tsne_forces", "tsne_z_f32", _Z_SIG)
         _build.launch("tsne_z", fn, dev, yp.data_ptr(), n, yp.shape[1],
-                      n_valid, splits, zpart.data_ptr(), z.data_ptr())
+                      n_valid, zpart.data_ptr(), z.data_ptr())
     return z[0]
 
 

@@ -22,7 +22,10 @@ Tolerances, as chip_smoke.py holds the kernels:
 * K5a tsne_z / K5b tsne_forces: against the float64 plain version, Z and
   the KL rtol 1e-5, forces within 1e-4 of the largest force (the
   reference's own bar, tests/test_embed_backends.py); fp64 partials
-  summed in a fixed order, so identical from call to call; on the
+  summed in a fixed order, so identical from call to call; K5a alone at
+  N from 1 to 6000 with padding, dims 2 and 4, and on equal points,
+  where Z = n_valid·(n_valid − 1) exactly (its tile-pair doubling and
+  diagonal tiles); on the
   caller's rows and, through tsne_step_fused, on rows in the locality
   order; diagonal tiles, padded tails and whole tiles of padding.  K5b
   built without its exp skip or its per-tile masks (``-D`` variants)
@@ -37,7 +40,10 @@ Tolerances, as chip_smoke.py holds the kernels:
 * K7 sketch_update_table: bit-exact on integer counts (exact in any
   order below 2**24); weighted values per cell within
   1e-5·Σ|contributions to the cell| of the float64 plain version (float
-  atomics add in a schedule-dependent order).
+  atomics add in a schedule-dependent order); R from 1 to 40 (past a
+  warp), a streaming chunk's layout (live prefix, dead suffix of value
+  0), groups of 32 with one live item; no −0.0 in a table that starts at
+  +0.0.
 * K8 sketch_estimate_table: bit-exact (a product with ±1 is exact)."""
 import ctypes
 import math
@@ -480,6 +486,43 @@ def test_tsne_forces_steps_change_no_bit(card, monkeypatch, ordered):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 127, 128, 129, 1300, 6000])
+@pytest.mark.parametrize("dims", [2, 4])
+@pytest.mark.parametrize("padded", [False, True])
+def test_tsne_z_matches_float64(card, n, dims, padded):
+    """K5a alone: tile pairs below, on and astride the 512-row tile (one
+    tile, a partial diagonal tile, interior and padded tiles), with
+    n_valid = n or below it."""
+    rng = np.random.default_rng(n * dims)
+    y = torch.from_numpy((rng.normal(size=(n, dims)) * 5).astype(np.float32))
+    n_valid = n - max(1, n // 10) if padded else n
+    yd = y.to(card)
+    before = LAUNCHES["tsne_z"]
+    z = tf.tsne_z_cuda(yd, n_valid)
+    z2 = tf.tsne_z_cuda(yd, n_valid)
+    torch.cuda.synchronize()
+    assert LAUNCHES["tsne_z"] == before + 2
+    assert z.dtype == torch.float32 and z.shape == () and z.is_cuda
+    assert torch.equal(z, z2)
+    zw = tf.tsne_z_torch(y.double(), n_valid).item()
+    assert abs(z.item() - zw) <= 1e-5 * zw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [2, 4])
+def test_tsne_z_on_equal_points_counts_every_pair(card, dims):
+    """Every valid pair adds exactly 1: Z = n_valid·(n_valid − 1), which
+    needs the off-diagonal tiles doubled and the diagonal tiles' j = i
+    left out; the padding rows (zeros, unlike the points) add nothing."""
+    n_valid = 3001
+    y = torch.full((n_valid, dims), 1.5)
+    y[:, 0] = -2.0
+    yp = tf.pad_rows(y, 1024)
+    z = tf.tsne_z_cuda(yp.to(card), n_valid)
+    assert z.item() == n_valid * (n_valid - 1)
+
+
+@pytest.mark.cuda
 def test_new_wrappers_reject_bad_inputs(card):
     i0 = torch.zeros((4, 2), dtype=torch.int32, device=card)
     f = torch.zeros((4, 2), device=card)
@@ -666,6 +709,88 @@ def test_sketch_update_kernel_matches_plain(card, rows, l2c, n, weighted):
         assert bool((err <= 1e-5 * scale).all()), err.max().item()
 
 
+def _check_update(card, params, hi, lo, v, start, weighted):
+    """K7 against the plain version: integer tables bit for bit, weighted
+    ones per cell within 1e-5·Σ|contrib|; a table that starts at +0.0
+    holds no −0.0."""
+    before = LAUNCHES["sketch_update_table"]
+    got = su_mod.sketch_update_cuda(start.to(card), params.to(card),
+                                    hi.to(card), lo.to(card),
+                                    v.to(card)).cpu()
+    torch.cuda.synchronize()
+    assert LAUNCHES["sketch_update_table"] == before + 1
+    if not weighted:
+        want = su_mod.sketch_update_torch(start.clone(), params, hi, lo, v)
+        assert torch.equal(got, want)
+    else:
+        want = su_mod.sketch_update_torch(start.double(), params, hi, lo, v)
+        scale = _cell_scale(params, hi, lo, v, start)
+        err = (got.double() - want).abs()
+        assert bool((err <= 1e-5 * scale).all()), err.max().item()
+    if not bool(torch.signbit(start).any()):
+        assert not bool(((got == 0) & torch.signbit(got)).any())
+    return got
+
+
+def _chunk_runs(n, live, seed):
+    """A streaming chunk's runs: ``live`` distinct sorted keys with
+    counts, then a dead suffix of count 0 on the chunk's largest key."""
+    rng = np.random.default_rng(seed)
+    k = np.unique(rng.integers(0, 2 ** 40, size=2 * live, dtype=np.uint64))
+    k = np.sort(rng.choice(k, size=live, replace=False))
+    keys = np.concatenate([k, np.full(n - live, k[-1], np.uint64)])
+    counts = np.zeros(n, np.float32)
+    counts[:live] = rng.integers(1, 60, size=live)
+    return (torch.from_numpy((keys >> np.uint64(32)).astype(np.int64)),
+            torch.from_numpy((keys & np.uint64(0xFFFFFFFF)).astype(np.int64)),
+            torch.from_numpy(counts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("signed", [False, True])
+def test_sketch_update_on_a_streaming_chunk(card, signed):
+    """Path I's chunk: 65 536 run slots, the first 33 650 live, R 16, C
+    2^18; counts, or counts with random signs (cells that cancel to
+    zero must come out +0.0)."""
+    hi, lo, v = _chunk_runs(65_536, 33_650, 7)
+    if signed:
+        v = v * torch.from_numpy(np.random.default_rng(8).choice(
+            [-1.0, 1.0], size=v.shape[0]).astype(np.float32))
+    got = _check_update(card, _params(16, 7), hi, lo, v,
+                        torch.zeros((16, 1 << 18)), False)
+    assert float(got.abs().sum()) <= 16 * float(v.abs().sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 5, 40])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sketch_update_row_counts(card, rows, weighted):
+    """One row, an odd count, and R past a warp (40 parameter triples
+    staged by one block)."""
+    n = 100_003
+    hi, lo = _keys(n, rows, universe=n // 3)
+    rng = np.random.default_rng(rows)
+    v = torch.from_numpy((rng.normal(size=n) if weighted else
+                          rng.integers(-3, 4, size=n)).astype(np.float32))
+    v[::5] = 0.0
+    _check_update(card, _params(rows, rows + 1), hi, lo, v,
+                  torch.zeros((rows, 1 << 14)), weighted)
+
+
+@pytest.mark.cuda
+def test_sketch_update_group_with_one_live_item(card):
+    """Groups of 32 with a single live item (first, middle, last lane)
+    among dead groups: each adds its R cells and nothing else does."""
+    n = 32 * 64
+    hi, lo = _keys(n, 3, universe=10 ** 9)
+    v = torch.zeros(n)
+    live = [32 * 5, 32 * 17 + 13, 32 * 63 + 31]
+    v[live] = torch.tensor([2.0, -3.0, 7.0])
+    got = _check_update(card, _params(16, 3), hi, lo, v,
+                        torch.zeros((16, 1 << 18)), False)
+    assert int((got != 0).sum()) <= 16 * len(live)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,l2c,q", [(16, 18, 40_000), (3, 6, 1000),
                                         (1, 22, 7), (4, 8, 0)])
@@ -745,6 +870,13 @@ def test_sketch_kernel_wrappers_reject_bad_inputs(card):
     with pytest.raises(ValueError, match="contiguous"):
         su_mod.sketch_update_cuda(table, params, k, k,
                                   torch.ones(10, device=card)[::2])
+    strided = params._replace(a1_hi=torch.zeros(
+        8, dtype=torch.int64, device=card)[::2])
+    with pytest.raises(ValueError, match="hash params"):
+        su_mod.sketch_update_cuda(table, strided, k, k, v)
+    with pytest.raises(ValueError, match="hash params"):
+        hp_mod.hash_points_cuda(params._replace(b_lo=params.b_lo.int()),
+                                grid, pts, 8)
     b = torch.zeros((4, 5), dtype=torch.int64, device=card)
     with pytest.raises(ValueError, match="CUDA tensors"):
         se_mod.sketch_estimate_cuda(table, b.cpu(), b)

@@ -258,3 +258,16 @@ def test_searchsorted_pair_matches_reference():
         want = ref_cand._searchsorted_pair(*map(jnp.asarray, (bh, bl, qh, ql)),
                                            side)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_kernel_hash_params_are_checked():
+    """The kernels read the six limb tensors through a pointer each:
+    strided, non-int64 or misshapen limbs are refused."""
+    from repro_torch.kernels.hash_points import check_params
+    hp = carry.hash_params_from_numpy(*hash_params(0, 4))
+    check_params("op", hp, torch.device("cpu"))
+    for bad in (hp._replace(a1_hi=torch.zeros(8, dtype=torch.int64)[::2]),
+                hp._replace(b_lo=hp.b_lo.int()),
+                hp._replace(a2_lo=hp.a2_lo[:3])):
+        with pytest.raises(ValueError, match="hash params"):
+            check_params("op", bad, torch.device("cpu"))
