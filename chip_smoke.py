@@ -77,7 +77,28 @@ Phases, each failing the run (non-zero exit) if it fails:
                  versions, the library calls and the bounds; K7 on a
                  chunk and ``index_add_`` in turns, 7 rounds, each round
                  printed, with the adds issued and the adds a second;
-11. parity     — the sketch stage at 2^20 points on the card, bit-identical
+11. service    — path V, the host tier: the same 26M points as 4 host
+                 shards of 6.5M (the paper's sites).  ``run_resilient(
+                 CANCER)`` with shard 3 dropped and flaky attempts:
+                 asserts lost (3,), ingest coverage 0.75, retries ≥ 1, the
+                 merged table bit-identical to the one-shot table of
+                 shards 0-2, K7 = the chunks the jobs folded (counted at
+                 their sources, retried attempts included), K8 = 1, K1 =
+                 600.  Then ``SnsService(CANCER)``: ``update_shards`` of
+                 all 4 (coverage 1, table bit-identical to the one-shot
+                 table of all 26M; the same 4 jobs then collected by 1
+                 thread and by 4, in turns), a cold refresh (K1 = 600,
+                 K8 = 1), an
+                 update of 2^20 new points (needs_refresh), a warm refresh
+                 (matched reps, 30 epochs, K1 = 60), ``transform`` of the
+                 2^20 points (finite; each rep as a query lands within
+                 1e-3 of its embedding), ``assign_points_to_hh`` over the
+                 26M (the first 2^20 labels bit-identical to the CPU run),
+                 save/load (equal transform bits), and a corrupt newest
+                 checkpoint that loads from its ``.bak`` (equal bits);
+                 prints ingest points/s, refresh seconds, transform
+                 queries/s with per-chunk p50/p99 and ``health()``;
+12. parity     — the sketch stage at 2^20 points on the card, bit-identical
                  to the port's CPU run given the same hash parameters; the
                  streaming sketch stage likewise (table, reservoir, count,
                  evict_max, HH), and the ingest stage's peak memory at 26M
@@ -118,6 +139,10 @@ CHECK_KNN_TILES = ((1, 128, 8), (37, 128, 8), (5, 200, 3), (3, 64, 64),
 RECALL_ROWS = 8192                  # path A's recall sample
 STREAM_SLICE = 1_000_003            # path I's host slices, ragged vs 65 536
 CHECK_SKETCH_QUERIES = 40_000       # K8: the CANCER candidate pool
+SERVICE_SHARDS = 4                  # path V: sites of 6.5M points each
+SERVICE_FAULTS = dict(seed=1, drop_shards=(3,), flaky=0.5)  # shards 1, 2
+#                                     fail their first attempt only
+SERVICE_UPDATE = 1 << 20            # path V: new points, transform queries
 K7_ROUNDS = 7                       # K7 and index_add_ timed in turns
 # the sketch stage of every one-shot path: one scatter, one estimate
 ONE_SHOT_SKETCH = {"sketch_update_table": 1, "sketch_estimate_table": 1}
@@ -1621,6 +1646,263 @@ def phase_stream(device, pts, pts_np, warm, spec):
     return cfg, state, runs, peak
 
 
+def one_shot_table(cfg, grid, pts, hp):
+    """The one-shot sketch table of ``pts`` at hash parameters ``hp``."""
+    from repro_torch.core import candidates, quantize, sketch
+    key_hi, key_lo = quantize.points_to_keys(grid, pts)
+    runs = candidates.sorted_runs(
+        key_hi, key_lo, assume_hi_zero=grid.dims * grid.bits_per_dim <= 32)
+    del key_hi, key_lo
+    return sketch.update_runs(sketch.init(hp, cfg.log2_cols), runs).table
+
+
+def counted(tag, expect, fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after (synchronized), kept as ``PATH_LAUNCHES[tag]`` and held to
+    ``expect`` {op: launches} (or a function giving it after the run), ops
+    not named there held to 0.  Returns (fn's result, wall seconds)."""
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {op: c for op, c in LAUNCHES.items() if c}
+    PATH_LAUNCHES[tag] = launches
+    if callable(expect):
+        expect = expect()
+    want = {op: c for op, c in expect.items() if c}
+    if launches != want:
+        raise AssertionError(f"[{tag}] launches {launches}, expected {want}")
+    return out, wall
+
+
+def phase_service(device, pts, pts_np, spec):
+    """Path V: ``run_resilient`` over 4 host shards with a dead and two
+    flaky ones, then an ``SnsService`` through ingest, cold and warm
+    refresh, transform, labelling and a checkpoint round trip."""
+    import collections
+    import shutil
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.configs.sns_paper import CANCER
+    from repro_torch.core import faults, geo, pipeline, quantize
+    from repro_torch.core import heavy_hitters as hh_mod
+    from repro_torch.core import resilience, service, stream
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    smi = nvidia_smi_line()
+    cfg = dataclasses.replace(CANCER, embed_knn_method="exact")
+    n_epochs = pipeline.resolve_embed_cfg(cfg).n_epochs
+    n = pts_np.shape[0]
+    per = -(-n // SERVICE_SHARDS)
+    bounds = [(s * per, min(n, (s + 1) * per)) for s in range(SERVICE_SHARDS)]
+    b = cfg.ingest_superbatch
+
+    def superbatched(points):
+        """Chunks one fold of ``points`` runs, padding chunks included."""
+        return -(-(-(-points // cfg.ingest_chunk)) // b) * b
+    folded = {s: superbatched(hi - lo) for s, (lo, hi) in enumerate(bounds)}
+    calls = collections.Counter()
+    lock = threading.Lock()
+
+    def sources():
+        """Each site's stream as host slices; a call is one attempt that
+        reached its fold."""
+        def factory(s):
+            lo, hi = bounds[s]
+            with lock:
+                calls[s] += 1
+            return (pts_np[a:min(a + STREAM_SLICE, hi)]
+                    for a in range(lo, hi, STREAM_SLICE))
+        return {s: (lambda s=s: factory(s)) for s in range(SERVICE_SHARDS)}
+    grid = quantize.fit_grid(pts, cfg.bins)
+    hp = pipeline._hash_params(cfg, device, None)
+    expected = {s: float(hi - lo) for s, (lo, hi) in enumerate(bounds)}
+
+    # 1. the resilient pipeline
+    captured = []
+    orig = geo.resilient_extract
+
+    def spy(*args, **kwargs):
+        captured.append(orig(*args, **kwargs))
+        return captured[-1]
+    geo.resilient_extract = spy
+    try:
+        res, wall = counted(
+            "V:resilient",
+            lambda: {"sketch_update_table": sum(
+                calls[s] * folded[s] for s in calls),
+                "sketch_estimate_table": 1, "segment_reduce": 2 * n_epochs},
+            lambda: pipeline.run_resilient(
+                cfg, sources(), grid, faults=faults.FaultPlan(
+                    **SERVICE_FAULTS), expected_counts=expected,
+                device=device))
+    finally:
+        geo.resilient_extract = orig
+    ext = captured[-1]
+    lo3 = bounds[SERVICE_SHARDS - 1][0]
+    want = one_shot_table(cfg, grid, pts[:lo3], hp)
+    same = torch.equal(ext.merged.table, want)
+    del want
+    st = res.stage_seconds
+    log(f"[service] run_resilient over {SERVICE_SHARDS} shards of {per} "
+        f"points ({SERVICE_FAULTS}): {wall:.3f} s (ingest {st['ingest']:.3f}"
+        f" s, {ext.observed_count / st['ingest'] / 1e6:.2f} M points/s; "
+        f"embed {st['embed']:.3f} s); lost {res.lost_shards}, ingest "
+        f"coverage {res.ingest_coverage}, retries {ext.retries}, folds a "
+        f"shard {dict(calls)}, hh_error_bound {res.hh_error_bound}, #HH "
+        f"{int(res.hh.mask.sum())}; merged table == one-shot table of "
+        f"shards 0-{SERVICE_SHARDS - 2}: {same}; launches "
+        f"{PATH_LAUNCHES['V:resilient']}")
+    if not (res.lost_shards == (SERVICE_SHARDS - 1,)
+            and res.ingest_coverage == 0.75 and ext.retries >= 1 and same
+            and bool(torch.isfinite(res.embedding).all())):
+        raise AssertionError("[service] run_resilient's gates failed")
+    del res, ext, captured
+
+    # 2. the service
+    scfg = service.ServiceConfig(refresh_drift=0.03)
+    svc = service.SnsService(cfg, grid, service_cfg=scfg, device=device)
+    calls.clear()
+    up, wall = counted(
+        "V:update_shards",
+        lambda: {"sketch_update_table": sum(calls[s] * folded[s]
+                                            for s in calls)},
+        lambda: svc.update_shards(sources(), expected_counts=expected))
+    want = one_shot_table(cfg, grid, pts, hp)
+    same = torch.equal(svc.state.sketch.table, want)
+    del want
+    log(f"[service] update_shards of all {SERVICE_SHARDS}: {up['seconds']:.3f}"
+        f" s, {up['points_per_sec'] / 1e6:.2f} M points/s, coverage "
+        f"{up['coverage']}; table == one-shot table of all {n}: {same}")
+    if not (up["coverage"] == 1.0 and same):
+        raise AssertionError("[service] update_shards' gates failed")
+    # the same 4 jobs collected by 1 thread and by 4, in turns: what the
+    # threads buy on one card
+    turns = []
+    for workers in (1, SERVICE_SHARDS, SERVICE_SHARDS, 1):
+        jobs = geo.shard_ingest_jobs(
+            grid, sources(), seed=cfg.seed, rows=cfg.rows,
+            log2_cols=cfg.log2_cols, pool=int(svc.state.cands.capacity),
+            chunk_size=cfg.ingest_chunk, superbatch=b, device=device,
+            hash_params=svc.state.sketch.params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agg = resilience.collect_shards(jobs, verify=True, device=device,
+                                        max_workers=workers)
+        torch.cuda.synchronize()
+        turns.append((workers, time.perf_counter() - t0, max(
+            st.attempt_seconds[-1] for st in agg.statuses)))
+    del agg
+    log("[service] collect_shards of the 4 jobs, in turns (workers, "
+        "seconds, slowest job's seconds): " + ", ".join(
+            f"({w}, {t:.3f}, {j:.3f})" for w, t, j in turns))
+    cold, wall = counted("V:cold", {"segment_reduce": 2 * n_epochs,
+                                    "sketch_estimate_table": 1},
+                         lambda: svc.refresh(mode="cold"))
+    log(f"[service] cold refresh {wall:.3f} s: {cold.embedding.shape[0]} "
+        f"reps, {cold.n_iters} epochs")
+    new, _ = gaussian_mixture(SERVICE_UPDATE, spec, seed=5)
+    upd, _ = counted("V:update",
+                     {"sketch_update_table": superbatched(SERVICE_UPDATE)},
+                     lambda: svc.update(new))
+    bound, floor = svc.error_bound(), \
+        scfg.error_ratio * svc._cache.min_hh_count
+    log(f"[service] update of {SERVICE_UPDATE} points: {upd['seconds']:.3f}"
+        f" s, {upd['points_per_sec'] / 1e6:.2f} M points/s; pending "
+        f"{upd['pending_fraction']:.4f} (refresh_drift "
+        f"{scfg.refresh_drift}), error bound {bound} vs {floor}; "
+        f"needs_refresh {upd['needs_refresh']}")
+    if not upd["needs_refresh"]:
+        raise AssertionError("[service] the update did not call for a "
+                             "refresh")
+    warm_iters = n_epochs // scfg.warm_factor
+    warm, wall = counted("V:warm", {"segment_reduce": 2 * warm_iters,
+                                    "sketch_estimate_table": 1},
+                         lambda: svc.refresh())
+    log(f"[service] warm refresh {wall:.3f} s: matched {warm.n_matched}, "
+        f"new {warm.n_new}, {warm.n_iters} epochs")
+    if not (warm.warm and warm.n_matched > 0 and warm.n_iters == warm_iters
+            and bool(torch.isfinite(warm.embedding).all())):
+        raise AssertionError("[service] the warm refresh's gates failed")
+
+    q = torch.from_numpy(new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = svc.transform(q)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    step = scfg.transform_chunk
+    laps = []
+    for a in range(0, SERVICE_UPDATE, step):
+        t0 = time.perf_counter()
+        svc.transform(q[a:a + step])
+        torch.cuda.synchronize()
+        laps.append(time.perf_counter() - t0)
+    laps.sort()
+    c = svc._cache
+    ident = (svc.transform(c.rep_x) - c.rep_y).abs().max().item()
+    log(f"[service] transform of {SERVICE_UPDATE} queries: {t_all:.3f} s, "
+        f"{SERVICE_UPDATE / t_all / 1e6:.3f} M queries/s; a chunk of {step} "
+        f"(host queries, synchronized): p50 {laps[len(laps) // 2] * 1e3:.3f}"
+        f" ms, p99 {laps[int(0.99 * (len(laps) - 1))] * 1e3:.3f} ms; "
+        f"finite {bool(torch.isfinite(y).all())}; {c.rep_x.shape[0]} reps "
+        f"as queries: max |transform − embedding| {ident:.3e}")
+    if not (bool(torch.isfinite(y).all()) and ident <= 1e-3):
+        raise AssertionError("[service] transform's gates failed")
+
+    hh = hh_mod.from_candidates(svc.state.sketch, svc.state.cands,
+                                cfg.top_k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels = pipeline.assign_points_to_hh(grid, hh, pts, device=device)
+    torch.cuda.synchronize()
+    t_lab = time.perf_counter() - t0
+    cpu = pipeline.assign_points_to_hh(
+        grid, pipeline.HeavyHitters(*[t.cpu() for t in hh]),
+        pts_np[:PARITY_POINTS], device="cpu")
+    same = torch.equal(labels[:PARITY_POINTS].cpu(), cpu)
+    log(f"[service] assign_points_to_hh over {n} points: {t_lab:.3f} s, "
+        f"labelled share {(labels >= 0).double().mean().item():.4f}; the "
+        f"first {PARITY_POINTS} bit-identical to the CPU run: {same}")
+    if not same:
+        raise AssertionError("[service] card and CPU labels differ")
+    del labels
+
+    ckpt = ROOT / "build" / "service_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    try:
+        path = ckpt / "svc"
+        probe = q[:step]
+        want = svc.transform(probe)
+        svc.save(path)
+        back = service.SnsService.load(path, cfg, grid, service_cfg=scfg,
+                                       device=device)
+        same_load = torch.equal(back.transform(probe), want)
+        svc.update(new[:step])
+        svc.save(path)                     # the first generation → .bak
+        faults.corrupt_file(stream._npz_path(path), seed=0)
+        old = service.SnsService.load(path, cfg, grid, service_cfg=scfg,
+                                      device=device)
+        same_bak = torch.equal(old.transform(probe), want) and \
+            stream.state_digest(old.state) == stream.state_digest(back.state)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"[service] save/load: transform bits equal {same_load}; newest "
+        f"generation corrupted, .bak loaded with equal bits and state "
+        f"{same_bak}")
+    if not (same_load and same_bak):
+        raise AssertionError("[service] the checkpoint round trip failed")
+    h = svc.health()
+    log(f"[service] health(): {json.dumps(h, default=str)}")
+    log(f"[service] {smi}")
+
+
 def phase_ops(device, pts, cfg):
     """The reference's fused-ingest entry points on the first 2^20 main
     points in chunks of ``cfg.ingest_chunk``: K6 and K7 once a chunk, K8
@@ -1921,7 +2203,9 @@ def main(argv=None) -> int:
     cfg_i, state, runs, peak = phase_stream(device, pts, pts_np, warm, spec)
     phase_ops(device, pts, cfg_i)
     k6, k7, k8 = phase_sketch_kernels(device, pts, cfg_i, state, runs)
-    del pts, pts_np, state, runs
+    del state, runs
+    phase_service(device, pts, pts_np, spec)
+    del pts, pts_np
     phase_parity(cfg, device, peak, args.points)
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
     kernels = [k1, k2, k3, k4, k5a, k5b, k6, k7, k8]

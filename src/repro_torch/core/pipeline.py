@@ -24,11 +24,12 @@ seeded from ``AnnConfig.seed``; ``Draws.ann`` takes them from outside.
 A chunk iterator or factory instead of an (N, D) array takes the
 streaming path (:func:`run_streaming`): a min/max pass fits the grid when
 none is given, then ``core.stream`` folds the host chunks on the device
-in bounded memory.
+in bounded memory.  :func:`run_resilient` takes independent per-shard
+chunk sources instead and survives lost, late and corrupt shards
+(``core.geo``, ``core.resilience``, ``core.faults``).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``mesh=``, ``shard_fn=`` and ``embed_mesh`` (P12);
-``chunks_from_loader(faults=...)`` (P13).
+Not ported yet, each raising ``NotImplementedError`` naming ROADMAP P12:
+``mesh=``, ``shard_fn=`` and ``embed_mesh``.
 """
 from __future__ import annotations
 
@@ -41,11 +42,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import candidates as cand_mod
-from repro_torch.core import hashing, prng, quantize, replicas
+from repro_torch.core import geo, hashing, prng, quantize, replicas
 from repro_torch.core import heavy_hitters as hh_mod
 from repro_torch.core import sketch as sketch_mod
 from repro_torch.core import stream as stream_mod
 from repro_torch.core import tsne as tsne_mod
+from repro_torch.core import u64
 from repro_torch.core import umap as umap_mod
 from repro_torch.core.ann import AnnDraws
 from repro_torch.core.device import resolve_device
@@ -170,6 +172,12 @@ class SnsResult:
     # tSNE's per-iteration KL on the device (None for UMAP); the
     # reference's embed_points returns it, its run drops it
     kl_trace: Optional[torch.Tensor] = None
+    # fraction of the expected stream mass ingest observed: below 1.0
+    # only on the resilient path after shard loss (distinct from
+    # `coverage`, the heavy hitters' share OF the observed)
+    ingest_coverage: float = 1.0
+    # shard ids the resilient path lost (empty on every other path)
+    lost_shards: Tuple[int, ...] = ()
 
 
 def _is_points_array(points) -> bool:
@@ -197,11 +205,7 @@ def _hash_params(cfg: SnsConfig, dev: torch.device,
                  ) -> hashing.MulShiftParams:
     """The given hash parameters on ``dev``, else R drawn from a
     generator on ``dev`` seeded from ``cfg.seed``."""
-    if hash_params is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(cfg.seed)
-        hash_params = hashing.make_params(gen, cfg.rows)
-    return hash_params.to(dev)
+    return geo.shared_params(cfg.seed, cfg.rows, dev, hash_params)
 
 
 def _sync(device: torch.device) -> None:
@@ -459,6 +463,55 @@ def run_streaming(cfg: SnsConfig, chunks=None,
                      hh_error_bound=bound, stage_seconds=times, kl_trace=kl)
 
 
+def run_resilient(cfg: SnsConfig, shard_chunks, grid: GridSpec, *,
+                  policy=None, deadline: Optional[float] = None,
+                  min_coverage: float = 0.0, expected_counts=None,
+                  faults=None, tsne_cfg=None, umap_cfg=None, device=None,
+                  draws: Optional[Draws] = None) -> SnsResult:
+    """Full SnS over independent per-shard chunk sources, with failure
+    handling: the fault-tolerant front end of :func:`run_streaming`, on
+    ``device`` (None = the card).
+
+    Each shard folds its own stream into a summary (host-level jobs, all
+    with the same hash parameters), so shards can fail without failing
+    the run: transient errors RETRY under ``policy``
+    (``resilience.RetryPolicy``), stragglers are cut off at ``deadline``
+    seconds, permanent losses DEGRADE into partial aggregation (the
+    result carries ``ingest_coverage < 1``, the lost shard ids and an
+    ``hh_error_bound`` widened by the estimated lost mass), and coverage
+    below ``min_coverage`` FAILS LOUD (``resilience.CoverageError``).
+    See ``geo.resilient_extract``; ``faults=`` is the reproducible-chaos
+    hook (``core.faults``).  ``stage_seconds`` holds "ingest" (the shard
+    jobs, the collection and the merge), "extract", "replicas" and
+    "embed".
+
+    ``grid`` is required up front (the shared-hypercube contract: sites
+    that may be lost cannot take part in a global min/max pass)."""
+    dev = resolve_device(device)
+    resolve_embed_cfg(cfg, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg)  # fail early
+    draws = draws or Draws()
+    times: Dict[str, float] = {}
+    t0 = time.perf_counter()
+    res = geo.resilient_extract(
+        grid, shard_chunks, rows=cfg.rows, log2_cols=cfg.log2_cols,
+        top_k=cfg.top_k, candidate_pool=cfg.candidate_pool, seed=cfg.seed,
+        chunk_size=cfg.ingest_chunk, superbatch=cfg.ingest_superbatch,
+        policy=policy, deadline=deadline, min_coverage=min_coverage,
+        expected_counts=expected_counts, faults=faults, device=dev,
+        hash_params=draws.hash_params)
+    _sync(dev)
+    times["ingest"] = time.perf_counter() - t0
+    reps, emb, w, ids, kl = _embed_stage_impl(
+        cfg, grid, res.hh, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg, device=dev,
+        draws=draws, stage_seconds=times)
+    coverage = float(res.hh.count.sum()) / max(res.observed_count, 1.0)
+    return SnsResult(grid=grid, hh=res.hh, reps=reps, embedding=emb,
+                     rep_weight=w, rep_hh_id=ids, coverage=coverage,
+                     hh_error_bound=res.hh_error_bound, stage_seconds=times,
+                     kl_trace=kl, ingest_coverage=res.coverage,
+                     lost_shards=res.lost)
+
+
 def chunks_from_loader(plan, host: int,
                        make_batch: Callable[[int, int], np.ndarray],
                        batches_per_shard: int = 1, steal: bool = False,
@@ -479,8 +532,8 @@ def chunks_from_loader(plan, host: int,
     or a sequence) names.  ``on_shard_done(shard)`` fires once per shard
     after its last batch.  ``on_shard_error(shard, exc) -> bool`` decides
     a failing shard's fate: True skips it (withheld all-or-nothing),
-    False/None re-raises.  ``faults=`` (chaos injection) raises:
-    ``core.faults`` is ROADMAP P13.
+    False/None re-raises.  ``faults`` (a ``core.faults.FaultPlan``) wraps
+    ``make_batch`` with reproducible chaos.
 
     With ``grid=None`` the pipeline iterates the factory twice (min/max,
     then ingest) while a shared board keeps moving: give the grid up front
@@ -488,9 +541,8 @@ def chunks_from_loader(plan, host: int,
     from repro_torch.data.loader import ShardedLoader
 
     if faults is not None:
-        raise NotImplementedError("chunks_from_loader(faults=...): fault "
-                                  "injection (core.faults) is not ported "
-                                  "yet: ROADMAP P13")
+        from repro_torch.core import faults as faults_mod
+        make_batch = faults_mod.chaos_make_batch(faults, make_batch)
 
     def factory():
         loader = ShardedLoader(plan, host, make_batch,
@@ -514,3 +566,35 @@ def chunks_from_loader(plan, host: int,
                 else (globally_completed or ())
             yield from drain(loader.steal(done))
     return factory
+
+
+def assign_points_to_hh(grid: GridSpec, hh: HeavyHitters, points,
+                        chunk: int = 65536, *, device=None) -> torch.Tensor:
+    """Label raw points by their heavy-hitter cell: (N,) int64, the HH
+    index of each point's cell, −1 where the cell is not a heavy hitter.
+
+    Used to project HH-level cluster labels back onto the raw data, as
+    the paper does for its contingency table (§IV-1).  ``points``, an
+    (N, D) host array or tensor, goes to ``device`` (None = the card)
+    ``chunk`` rows at a time: each chunk is quantized and its keys
+    binary-searched against the sorted live HH keys, so memory beyond
+    the labels is O(chunk)."""
+    dev = resolve_device(device)
+    n = points.shape[0]
+    out = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    live = hh.mask.to(dev)
+    ids = torch.nonzero(live).squeeze(1)
+    hi, lo = hh.key_hi.to(dev)[live], hh.key_lo.to(dev)[live]
+    order = torch.argsort(u64.sort_key((hi, lo)), stable=True)
+    shi, slo, sids = hi[order], lo[order], ids[order]
+    if sids.numel() == 0 or n == 0:
+        return out
+    chunk = max(1, min(int(chunk), n))
+    for s in range(0, n, chunk):
+        khi, klo = quantize.points_to_keys(
+            grid, _points_tensor(points[s:s + chunk], dev))
+        pos = cand_mod._searchsorted_pair(shi, slo, khi, klo, "left")
+        pos = pos.clamp_(max=sids.numel() - 1)
+        hit = (shi[pos] == khi) & (slo[pos] == klo)
+        out[s:s + chunk] = torch.where(hit, sids[pos], -1)
+    return out

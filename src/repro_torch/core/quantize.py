@@ -147,3 +147,28 @@ def cell_center(grid: GridSpec, coords: torch.Tensor) -> torch.Tensor:
 
 def points_to_keys(grid: GridSpec, points: torch.Tensor) -> u64.U64:
     return pack(grid, quantize(grid, points))
+
+
+def collision_rate(volume: float, num_hh: int, dims: int
+                   ) -> Tuple[float, float]:
+    """Paper §III-2 Poisson contact-neighbourhood collision model.
+
+    K heavy hitters on a grid of V cells; each cell's contact neighbourhood
+    is the 3^D hypercube around it, so the HH density per neighbourhood is
+    rho = K * 3^D / V.  A *random collision* is a neighbourhood containing
+    two or more HHs:  P(coll) = P(N>=2) = 1 - e^-rho - rho*e^-rho, and the
+    expected number of collided HHs is C = K * P(coll).  This reproduces the
+    paper's numbers: K=1e4, D=10, M=8 -> C~1057; M=16 -> C~0.00144.
+    """
+    rho = 3.0 ** dims * (num_hh / volume)
+    p_ge2 = 1.0 - math.exp(-rho) - rho * math.exp(-rho)
+    return rho, num_hh * p_ge2
+
+
+def collision_rate_text(volume: float, num_hh: int, dims: int
+                        ) -> Tuple[float, float]:
+    """The formula as written in the paper's text: C = K·P(>0) with
+    P(>0) = 1 - e^-rho.  The paper's published numbers (1057, 0.00144)
+    follow :func:`collision_rate` (P(N>=2)) instead; both are kept."""
+    rho = 3.0 ** dims * (num_hh / volume)
+    return rho, num_hh * (1.0 - math.exp(-rho))

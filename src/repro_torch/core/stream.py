@@ -263,6 +263,17 @@ def ingest_all(state: IngestState, grid: GridSpec, chunks: Iterable,
     return state
 
 
+def state_to(state: IngestState, device) -> IngestState:
+    """The state with every tensor on ``device`` (a no-op where it lies
+    there already)."""
+    sk, c = state.sketch, state.cands
+    return IngestState(
+        sketch=CountSketch(table=sk.table.to(device),
+                           params=sk.params.to(device)),
+        cands=Candidates(*(t.to(device) for t in c)),
+        count=state.count.to(device), evict_max=state.evict_max.to(device))
+
+
 def merge_states(a: IngestState, b: IngestState) -> IngestState:
     """Linear merge of two folds built with IDENTICAL hash params (checked
     by table shape; equal values are the caller's contract, as in
@@ -329,17 +340,36 @@ def _payload_crc(payload: dict) -> int:
     return crc & 0xFFFFFFFF
 
 
-def state_digest(state: IngestState) -> int:
-    """crc32 fingerprint of a fold's arrays, leaf by leaf in the
-    reference's dtypes and order (table, the six hash limbs, reservoir
-    keys, counts and mask, count, watermark): equal to the reference's
-    ``state_digest`` of the same state."""
+def state_leaves(state: IngestState) -> list:
+    """The fold's arrays as numpy, leaf by leaf in the reference's pytree
+    order and dtypes: table, the six hash limbs (uint32), reservoir keys
+    (uint32), counts and mask, count, watermark."""
     a = _arrays(state)
-    leaves = [a["table"], *a["hash_params"], a["cand_key_hi"],
-              a["cand_key_lo"], a["cand_count"], a["cand_mask"], a["count"],
-              a["evict_max"]]
+    return [a["table"], *a["hash_params"], a["cand_key_hi"],
+            a["cand_key_lo"], a["cand_count"], a["cand_mask"], a["count"],
+            a["evict_max"]]
+
+
+def state_from_leaves(leaves, device) -> IngestState:
+    """Inverse of :func:`state_leaves`, onto ``device``."""
+    def t(x, dtype):
+        return torch.from_numpy(np.asarray(x).astype(dtype)).to(device)
+    table, *limbs = leaves[:7]
+    hi, lo, cnt, mask, count, evict = leaves[7:]
+    return IngestState(
+        sketch=CountSketch(table=t(table, np.float32),
+                           params=MulShiftParams(*(t(p, np.int64)
+                                                   for p in limbs))),
+        cands=Candidates(key_hi=t(hi, np.int64), key_lo=t(lo, np.int64),
+                         count=t(cnt, np.float32), mask=t(mask, bool)),
+        count=t(count, np.float32), evict_max=t(evict, np.float32))
+
+
+def state_digest(state: IngestState) -> int:
+    """crc32 fingerprint of a fold's arrays (:func:`state_leaves`): equal
+    to the reference's ``state_digest`` of the same state."""
     crc = 0
-    for leaf in leaves:
+    for leaf in state_leaves(state):
         crc = zlib.crc32(np.ascontiguousarray(leaf).tobytes(), crc)
     return crc & 0xFFFFFFFF
 
@@ -391,22 +421,13 @@ def _load_npz(p: str, with_extra: bool, device: torch.device):
         raise CheckpointCorruptError(
             f"checkpoint {p!r} failed its crc32 check (bit rot or a "
             f"partial overwrite)")
-
-    def t(x, dtype):
-        return torch.from_numpy(np.asarray(x).astype(dtype)).to(device)
     try:
         hp = arrays["hash_params"]
-        state = IngestState(
-            sketch=CountSketch(
-                table=t(arrays["table"], np.float32),
-                params=MulShiftParams(*(t(hp[i], np.int64)
-                                        for i in range(6)))),
-            cands=Candidates(key_hi=t(arrays["cand_key_hi"], np.int64),
-                             key_lo=t(arrays["cand_key_lo"], np.int64),
-                             count=t(arrays["cand_count"], np.float32),
-                             mask=t(arrays["cand_mask"], bool)),
-            count=t(arrays["count"], np.float32),
-            evict_max=t(arrays["evict_max"], np.float32))
+        state = state_from_leaves(
+            [arrays["table"], *(hp[i] for i in range(6)),
+             *(arrays[k] for k in ("cand_key_hi", "cand_key_lo",
+                                   "cand_count", "cand_mask", "count",
+                                   "evict_max"))], device)
     except (KeyError, IndexError, ValueError) as e:
         raise CheckpointCorruptError(
             f"checkpoint {p!r} missing/malformed fields: {e}") from e

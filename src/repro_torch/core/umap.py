@@ -68,12 +68,17 @@ def fit_ab(spread: float, min_dist: float) -> Tuple[float, float]:
 
 def fuzzy_simplicial_set(knn_idx: torch.Tensor, knn_dist: torch.Tensor,
                          weights: Optional[torch.Tensor] = None,
-                         search_iters: int = 50
+                         search_iters: int = 50, symmetrize: str = "sparse"
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Memberships on the kNN edges, symmetrized sparsely.
+    """Memberships on the kNN edges, symmetrized.
 
     Returns (edges (E, 2) int64, membership (E,) float32), E = N·k, the
-    edge list in src-sorted order."""
+    edge list in src-sorted order.  ``symmetrize="sparse"`` (default)
+    finds each edge's reverse by binary search, with no (N, N) temporary;
+    ``"dense"`` is the reference's scatter-max path for small N: an
+    (N, N) membership matrix."""
+    if symmetrize not in ("sparse", "dense"):
+        raise ValueError(f"unknown symmetrize {symmetrize!r}")
     n, k = knn_idx.shape
     dev = knn_dist.device
     rho = knn_dist[:, 0]
@@ -96,8 +101,14 @@ def fuzzy_simplicial_set(knn_idx: torch.Tensor, knn_dist: torch.Tensor,
     rows = torch.arange(n, device=dev).repeat_interleave(k)
     cols = knn_idx.reshape(-1)
     vals = memb.reshape(-1)
+    edges = torch.stack([rows, cols], 1)
+    if symmetrize == "dense":
+        dense = torch.zeros((n, n), dtype=vals.dtype, device=dev)
+        dense.view(-1).scatter_reduce_(0, rows * n + cols, vals, "amax")
+        sym = dense + dense.T - dense * dense.T
+        return edges, sym[rows, cols]
     rev = neighbors.reverse_edge_values(knn_idx, memb, rows, cols, vals, n)
-    return torch.stack([rows, cols], 1), vals + rev - vals * rev
+    return edges, vals + rev - vals * rev
 
 
 def epoch_delta(y: torch.Tensor, layout: coo.EdgeLayout, memb_n: torch.Tensor,

@@ -1,7 +1,12 @@
 """Synthetic data: clustered point clouds matching the paper's data
 statistics (dense clusters + uniform background), the stand-in for the
 cancer-pixel and SDSS-star sets.  numpy only, so the same seed gives the
-reference's points (``repro.data.synthetic.gaussian_mixture``) exactly."""
+reference's points (``repro.data.synthetic``) exactly.
+
+* ``gaussian_mixture`` — one cloud with ground-truth labels;
+* ``clustered_points_sharded`` — shard w's own slice of the same mixture
+  from its own seed: no host ever holds the global array (the paper's
+  geo-distributed setting)."""
 from __future__ import annotations
 
 import dataclasses
@@ -46,3 +51,14 @@ def gaussian_mixture(n: int, spec: MixtureSpec = MixtureSpec(),
         perm = rng.permutation(n)
         pts, labels = pts[perm], labels[perm]
     return pts.astype(np.float32), labels
+
+
+def clustered_points_sharded(shard: int, n_per_shard: int,
+                             spec: MixtureSpec = MixtureSpec(),
+                             seed: int = 0) -> np.ndarray:
+    """Shard-local generation: the same mixture, disjoint randomness.
+    Every site draws from the identical cluster model (the paper's
+    assumption: one underlying distribution, geographically split)."""
+    pts, _ = gaussian_mixture(n_per_shard, spec,
+                              seed=seed * 100_003 + shard * 7 + 13)
+    return pts

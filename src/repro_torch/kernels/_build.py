@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: Dict[Tuple[str, ...], ctypes.CDLL] = {}
 _ENTRIES: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
@@ -145,4 +146,5 @@ def launch(op: str, fn: ctypes._CFuncPtr, device: torch.device, *args
             rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[op] += 1
+    with _COUNT_LOCK:      # shard jobs launch from several threads
+        LAUNCHES[op] += 1

@@ -80,7 +80,8 @@ def test_synthetic_data_and_paper_configs_match_reference():
     np.testing.assert_array_equal(p, rp)
     np.testing.assert_array_equal(lab, rlab)
     from repro.configs import sns_paper as ref_paper
-    for name in ("CANCER", "SDSS", "CANCER_100K", "CANCER_1M"):
+    for name in ("CANCER", "SDSS", "CANCER_ERROR_EVAL", "CANCER_100K",
+                 "SDSS_100K", "CANCER_1M"):
         ref = dataclasses.asdict(getattr(ref_paper, name))
         assert ref.pop("kernel_mode") == "auto"
         assert dataclasses.asdict(getattr(sns_paper, name)) == ref
@@ -171,7 +172,121 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present: device=None runs there")
     pts, _ = gaussian_mixture(200, MixtureSpec(dims=3), seed=1)
     cfg = pipeline.SnsConfig(bins=4, rows=2, log2_cols=6, top_k=8)
+    from repro_torch.core import quantize, service
+    grid = quantize.GridSpec(dims=3, bins=4, lo=(0.0,) * 3, hi=(1.0,) * 3)
+    _, hh = pipeline.sketch_stage(cfg, pts, grid, device="cpu")
     for call in (lambda: pipeline.run(cfg, pts),
-                 lambda: pipeline.sketch_stage(cfg, pts)):
+                 lambda: pipeline.sketch_stage(cfg, pts),
+                 lambda: pipeline.run_resilient(cfg, [pts], grid),
+                 lambda: pipeline.assign_points_to_hh(grid, hh, pts),
+                 lambda: service.SnsService(cfg, grid)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_sharded_data_and_collision_model_match_reference():
+    from repro.core import quantize as ref_quantize
+    from repro.data.synthetic import clustered_points_sharded as ref_sharded
+    from repro_torch.core import quantize
+    from repro_torch.data.synthetic import clustered_points_sharded
+    spec = dict(dims=4, n_clusters=3)
+    for shard, seed in [(0, 0), (3, 2)]:
+        np.testing.assert_array_equal(
+            clustered_points_sharded(shard, 777, MixtureSpec(**spec), seed),
+            ref_sharded(shard, 777, RefSpec(**spec), seed))
+    for args in [(8.0 ** 10, 10_000, 10), (16.0 ** 10, 10_000, 10),
+                 (25.0 ** 8, 20_000, 8), (1e3, 5, 2)]:
+        assert quantize.collision_rate(*args) == \
+            ref_quantize.collision_rate(*args)
+        assert quantize.collision_rate_text(*args) == \
+            ref_quantize.collision_rate_text(*args)
+    # the paper's published numbers (§III-2)
+    assert quantize.collision_rate(8.0 ** 10, 10_000, 10)[1] == \
+        pytest.approx(1057, rel=1e-3)
+
+
+def test_assign_points_to_hh_matches_reference_bit_for_bit():
+    """Labels equal the reference's on mixture points, points on the
+    grid's corners and cell edges, points outside it, and every chunk
+    size (a ragged last chunk included)."""
+    from repro_torch.core import quantize
+    from repro_torch.core.heavy_hitters import HeavyHitters
+    pts, _ = gaussian_mixture(3000, MixtureSpec(dims=3, n_clusters=3),
+                              seed=5)
+    ref_cfg = ref_pipeline.SnsConfig(bins=8, rows=4, log2_cols=10, top_k=40)
+    ref_grid, ref_hh = ref_pipeline.sketch_stage(ref_cfg, jnp.asarray(pts))
+    grid = quantize.GridSpec(dims=3, bins=8, lo=ref_grid.lo, hi=ref_grid.hi)
+    lo, hi = np.asarray(ref_grid.lo, np.float32), np.asarray(ref_grid.hi,
+                                                             np.float32)
+    cell = (hi - lo) / 8
+    edges = lo + cell * np.arange(9, dtype=np.float32)[:, None]
+    rng = np.random.default_rng(0)
+    extra = np.concatenate([
+        np.stack([lo, hi, lo - 1.0, hi + 1.0]),
+        edges[rng.integers(0, 9, size=(300, 3)), np.arange(3)],
+        np.nextafter(edges, np.inf)[rng.integers(0, 9, size=(100, 3)),
+                                    np.arange(3)]]).astype(np.float32)
+    q = np.concatenate([pts, extra])
+    thh = HeavyHitters(*[torch.from_numpy(np.asarray(a).astype(
+        np.int64 if a.dtype == jnp.uint32 else a.dtype)) for a in ref_hh])
+    for chunk in (65536, 1000, 7):
+        want = ref_pipeline.assign_points_to_hh(ref_grid, ref_hh,
+                                                jnp.asarray(q), chunk)
+        got = pipeline.assign_points_to_hh(grid, thh, q, chunk,
+                                           device="cpu")
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < (want >= 0).mean() < 1
+    none = thh._replace(mask=torch.zeros_like(thh.mask))
+    assert bool((pipeline.assign_points_to_hh(grid, none, q, device="cpu")
+                 == -1).all())
+
+
+def test_run_resilient_matches_reference_given_draws():
+    """A dead shard, flaky and corrupt deliveries: the heavy hitters and
+    reps equal the reference's bit for bit, the damage report equals its,
+    and with one replica a cell and the reference's UMAP draws the
+    embedding is within 1e-4."""
+    from repro.core import faults as ref_faults
+    from repro.core import quantize as ref_quantize
+    from repro.core import resilience as ref_res
+    from repro_torch.core import faults, quantize, resilience
+    from repro_torch.data.synthetic import clustered_points_sharded
+    spec = MixtureSpec(dims=3, n_clusters=3, cluster_std=0.05)
+    data = {s: clustered_points_sharded(s, 500, spec, seed=1)
+            for s in range(4)}
+    kw = dict(bins=6, rows=4, log2_cols=10, top_k=32, candidate_pool=128,
+              ingest_chunk=128, ingest_superbatch=2, max_replicas=1)
+    plan = dict(seed=2, drop_shards=(1,), flaky=0.4, corrupt=0.4)
+    expected = {s: 500.0 for s in data}
+    ucfg = dict(n_neighbors=5, n_epochs=3)
+    ref_cfg = ref_pipeline.SnsConfig(**kw)
+    ref_grid = ref_quantize.fit_grid(np.concatenate(list(data.values())), 6)
+    ref = ref_pipeline.run_resilient(
+        ref_cfg, data, ref_grid, faults=ref_faults.FaultPlan(**plan),
+        policy=ref_res.RetryPolicy(max_attempts=4, base_delay=0.001),
+        expected_counts=expected, umap_cfg=ref_umap.UmapConfig(**ucfg))
+    n = ref.embedding.shape[0]
+    init, negs = par.umap_draws(par.embed_key(0), n, n * 5, 2, 3, 5)
+    draws = carry.draws_from_numpy(hash_params=par.hash_params(0, 4),
+                                   umap_init=init, negatives=negs)
+    grid = quantize.GridSpec(dims=3, bins=6, lo=ref_grid.lo, hi=ref_grid.hi)
+    got = pipeline.run_resilient(
+        pipeline.SnsConfig(**kw), data, grid,
+        faults=faults.FaultPlan(**plan),
+        policy=resilience.RetryPolicy(max_attempts=4, base_delay=0.001),
+        expected_counts=expected, umap_cfg=umap.UmapConfig(**ucfg),
+        device="cpu", draws=draws)
+    for f in ref.hh._fields:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(ref.hh, f)).astype(np.float64),
+            getattr(got.hh, f).numpy().astype(np.float64), err_msg=f)
+    np.testing.assert_array_equal(np.asarray(ref.reps.points),
+                                  got.reps.points.numpy())
+    for f in ("coverage", "hh_error_bound", "ingest_coverage",
+              "lost_shards"):
+        assert getattr(got, f) == getattr(ref, f), f
+    assert got.lost_shards == (1,) and got.ingest_coverage == 0.75
+    assert set(got.stage_seconds) == {"ingest", "replicas", "embed"}
+    np.testing.assert_allclose(got.embedding.numpy(),
+                               np.asarray(ref.embedding), rtol=0, atol=1e-4)

@@ -294,9 +294,21 @@ def test_loader_copy_matches_reference():
         on_shard_error=skip)
     assert got == [int(b[0, 0]) // 10 for b in ref_factory()]
     assert done == ref_done
-    with pytest.raises(NotImplementedError, match="P13"):
-        pipeline.chunks_from_loader(loader.ShardPlan(8, 2), 0, make_batch,
-                                    faults=object())
+    # faults= wraps make_batch with the reference's chaos: the same
+    # batches skipped, bit-flipped and delivered
+    from repro.core.faults import FaultPlan as RefPlan
+    from repro_torch.core.faults import FaultPlan
+    chaos = dict(seed=3, drop_shards=(2,), corrupt=0.4)
+    runs = []
+    for mod, plan, p in ((pipeline, FaultPlan(**chaos), loader),
+                         (ref_pipeline, RefPlan(**chaos), ref_loader)):
+        failed = []
+        fac = mod.chunks_from_loader(
+            p.ShardPlan(8, 2), 0, make_batch, batches_per_shard=2,
+            faults=plan,
+            on_shard_error=lambda s, e: failed.append(s) or True)
+        runs.append(([b.tobytes() for b in fac()], failed))
+    assert runs[0] == runs[1] and runs[0][1] == [2]
     cfg = dataclasses.replace(pipeline.SnsConfig(**CFG), ingest_chunk=4)
     grid, hh, total = pipeline.sketch_stage_streaming(
         cfg, pipeline.chunks_from_loader(loader.ShardPlan(4, 1), 0,

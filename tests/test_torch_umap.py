@@ -156,3 +156,27 @@ def test_run_umap_blobs_separate_with_own_draws():
         for b in range(a + 1, 3):
             inter.append(np.linalg.norm(ya.mean(0) - y[labels == b].mean(0)))
     assert min(inter) > 1.5 * max(intra)
+
+
+def test_dense_symmetrization_matches_reference_and_sparse():
+    """symmetrize="dense" (the (N, N) scatter-max path) against the
+    reference's dense path and the port's own sparse form."""
+    _, w, ri, rd = _graph(4)
+    idx, dist = torch.from_numpy(np.array(ri)).long(), torch.from_numpy(
+        np.array(rd))
+    for weights in (None, w):
+        rw = None if weights is None else jnp.asarray(weights)
+        tw = None if weights is None else torch.from_numpy(weights)
+        re_, rm = ref_umap.fuzzy_simplicial_set(ri, rd, weights=rw,
+                                                symmetrize="dense")
+        te, tm = umap.fuzzy_simplicial_set(idx, dist, weights=tw,
+                                           symmetrize="dense")
+        se, sm = umap.fuzzy_simplicial_set(idx, dist, weights=tw)
+        np.testing.assert_array_equal(np.asarray(re_), te.numpy())
+        assert torch.equal(te, se)
+        np.testing.assert_allclose(tm.numpy(), np.asarray(rm), rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(tm.numpy(), sm.numpy(), rtol=0,
+                                   atol=1e-6)
+    with pytest.raises(ValueError, match="unknown symmetrize"):
+        umap.fuzzy_simplicial_set(idx, dist, symmetrize="lower")
