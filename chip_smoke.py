@@ -98,8 +98,33 @@ Phases, each failing the run (non-zero exit) if it fails:
                  checkpoint that loads from its ``.bak`` (equal bits);
                  prints ingest points/s, refresh seconds, transform
                  queries/s with per-chunk p50/p99 and ``health()``;
-12. parity     — the sketch stage at 2^20 points on the card, bit-identical
-                 to the port's CPU run given the same hash parameters; the
+12. mesh       — path M, the mesh tier on the paper's four sites: the same
+                 26M points written once to a .npy that every rank maps,
+                 copying only its own row block (6.5M × 8) to the card.
+                 Layouts: 4 gloo ranks sharing the card as a (2, 2)
+                 ("pod", "data") mesh, 1 nccl rank, and 4 nccl ranks (one
+                 card each) where there are 4 cards; every rank a
+                 process from torch.multiprocessing's spawn context, the
+                 kernels built once by this process.  On each rank, after
+                 a small warm-up: (a) ``pipeline.run(CANCER, shard,
+                 mesh=)`` with no hash parameters: the merged table
+                 equals the single-device one-shot table bit for bit,
+                 total_count = 26M, the HH equal on every rank, the blobs
+                 separate, K7 = K8 = 1 and K1 = 600 a rank; (b)
+                 ``run_streaming(mesh=, shard_fn=)`` over the rank's
+                 block in chunks of 65 536 with (a)'s grid: its table
+                 equals (a)'s, K7 = one a chunk; (c) UMAP on (a)'s reps
+                 over a 1-D embed mesh of all ranks: one epoch within
+                 1e-4·scale of the single-device run from the same
+                 generator, then ``embed_stage(embed_mesh=)``'s 300
+                 epochs finite and separated with K1 = 600 a rank (one
+                 rank: bit-identical to (a)'s embedding); prints each
+                 step's seconds and the collectives' ms an epoch (on
+                 card tensors, and on a gloo layout on host tensors).
+                 Launches count under ``M:<layout>:<step>:r<rank>``; a
+                 rank that fails, times out or disagrees fails the run;
+13. parity     — the sketch stage at 2^20 points on the card, bit-identical
+                 to the port's CPU run, each at its default hash draw; the
                  streaming sketch stage likewise (table, reservoir, count,
                  evict_max, HH), and the ingest stage's peak memory at 26M
                  within 10 % of its peak at 2^20 points.
@@ -114,6 +139,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -144,6 +170,11 @@ SERVICE_FAULTS = dict(seed=1, drop_shards=(3,), flaky=0.5)  # shards 1, 2
 #                                     fail their first attempt only
 SERVICE_UPDATE = 1 << 20            # path V: new points, transform queries
 K7_ROUNDS = 7                       # K7 and index_add_ timed in turns
+MESH_RANKS = 4                      # path M: the paper's four sites
+MESH_AXES = ("data", "pod")         # sharded over, innermost first
+MESH_CHUNK = 65_536                 # path M (b): rows a streamed batch
+MESH_TIMEOUT_S = 600                # path M: a layout's ranks, at most
+MESH_COLLECTIVE_ROUNDS = 50         # path M: epochs of collectives timed
 # the sketch stage of every one-shot path: one scatter, one estimate
 ONE_SHOT_SKETCH = {"sketch_update_table": 1, "sketch_estimate_table": 1}
 # each driven path's launches, by tag (K7 and K8 run on all of them)
@@ -661,12 +692,11 @@ def key_stream(device, n, universe, seed):
 def phase_check_sketch(device):
     """K6, K7 and K8 against their plain versions."""
     import torch
-    from repro_torch.core import hashing
+    from repro_torch.core import hashing, prng
     for d in (2, 8, 12):
         grid, pts = hash_inputs(device, CHECK_CIC_POINTS, d,
                                 {2: 1000, 8: 25, 12: 16}[d], d)
-        params = hashing.make_params(torch.Generator().manual_seed(d),
-                                     16).to(device)
+        params = hashing.make_params(prng.key(d, device=device), 16)
         for l2c in (6, 18, 22):
             check_hash_points(params, grid, pts, l2c)
     log(f"[check] hash_points at N={CHECK_CIC_POINTS}, R=16, D in (2, 8, "
@@ -675,8 +705,7 @@ def phase_check_sketch(device):
     n = CHECK_CIC_POINTS
     errs = []
     for r in (1, 16):
-        params = hashing.make_params(torch.Generator().manual_seed(r),
-                                     r).to(device)
+        params = hashing.make_params(prng.key(r, device=device), r)
         hi, lo = key_stream(device, n, n // 4, r)
         gen = torch.Generator(device=device).manual_seed(r)
         vi = torch.randint(-3, 4, (n,), generator=gen, device=device).float()
@@ -691,8 +720,7 @@ def phase_check_sketch(device):
         f"values; weighted max_abs_err {max(errs):.3e} (within "
         f"1e-5·Σ|contrib| per cell)")
     q = CHECK_SKETCH_QUERIES
-    params = hashing.make_params(torch.Generator().manual_seed(8),
-                                 16).to(device)
+    params = hashing.make_params(prng.key(8, device=device), 16)
     hi, lo = key_stream(device, q, 10 ** 12, 8)
     b, s = hashing.hashes(params, hi, lo, 18)
     table = torch.randn((16, 1 << 18), generator=torch.Generator(
@@ -1903,6 +1931,346 @@ def phase_service(device, pts, pts_np, spec):
     log(f"[service] {smi}")
 
 
+class GeoSpy:
+    """Wraps ``geo.geo_extract`` and ``geo.geo_extract_from_shards`` (the
+    pipeline calls them through the module) and keeps each call's
+    result, merged table included."""
+
+    NAMES = ("geo_extract", "geo_extract_from_shards")
+
+    def __enter__(self):
+        from repro_torch.core import geo
+        self.results, self.orig = [], {n: getattr(geo, n) for n in self.NAMES}
+
+        def wrap(fn):
+            def spy(*args, **kwargs):
+                self.results.append(fn(*args, **kwargs))
+                return self.results[-1]
+            return spy
+        for n, fn in self.orig.items():
+            setattr(geo, n, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import geo
+        for n, fn in self.orig.items():
+            setattr(geo, n, fn)
+
+
+def digest(*tensors) -> str:
+    """sha256 of the tensors' bytes, on the host."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def mesh_layouts(n_cards: int):
+    """(name, ranks, backend, ranks share cuda:0) of every path M layout:
+    4 gloo ranks on one card, 1 nccl rank, and 4 nccl ranks where there
+    are 4 cards."""
+    layouts = [("gloo4", MESH_RANKS, "gloo", True),
+               ("nccl1", 1, "nccl", False)]
+    if n_cards >= MESH_RANKS:
+        layouts.append(("nccl4", MESH_RANKS, "nccl", False))
+    return layouts
+
+
+def mesh_rank(rank, world, backend, shared, tmp, queue):
+    """One rank of path M (a spawned process): puts (rank, "ok", its
+    report) or (rank, "error", the traceback) on ``queue``."""
+    import traceback
+    try:
+        queue.put((rank, "ok", _mesh_rank(rank, world, backend, shared,
+                                          Path(tmp))))
+    except Exception:
+        queue.put((rank, "error", traceback.format_exc()))
+        raise
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _mesh_rank(rank, world, backend, shared, tmp):
+    """Path M on one rank: (a) the one-shot ``pipeline.run(mesh=)`` on the
+    rank's row block, (b) ``run_streaming(mesh=, shard_fn=)`` over the
+    same block in chunks of MESH_CHUNK, (c) the UMAP embed over a 1-D
+    embed mesh of all ranks.  Returns launches, digests, gate values and
+    seconds; the parent holds them to the gates."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.configs.sns_paper import CANCER
+    from repro_torch.core import mesh as mesh_mod
+    from repro_torch.core import pipeline, umap
+    from repro_torch.data.synthetic import MixtureSpec
+    from repro_torch.kernels import LAUNCHES
+
+    dev = torch.device("cuda", 0 if shared else rank)
+    torch.cuda.set_device(dev)
+    # every rank of path M runs on this host: rendezvous over loopback
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shape = (2, world // 2) if world % 2 == 0 else (1, world)
+    mesh = mesh_mod.init_mesh(rank, world, f"file://{tmp / 'rendezvous'}",
+                              shape, ("pod", "data"), backend=backend)
+    axes = MESH_AXES
+    cfg = dataclasses.replace(CANCER, embed_knn_method="exact")
+    pts_all = np.load(tmp.parent / "points.npy", mmap_mode="r")
+    n = pts_all.shape[0]
+    rows_per, _ = mesh_mod.row_block(n, world)
+    idx = mesh_mod.linear_index(mesh, axes)
+    shard = torch.from_numpy(np.array(
+        pts_all[idx * rows_per:(idx + 1) * rows_per])).to(dev)
+    del pts_all
+    centers = torch.as_tensor(np.asarray(MixtureSpec(dims=8).centers(0),
+                                         np.float32), device=dev)
+    rep = {"rank": rank, "index": idx, "rows": shard.shape[0], "secs": {},
+           "launches": {}}
+
+    def step(name, fn):
+        torch.cuda.synchronize(dev)
+        mesh_mod.all_reduce(torch.zeros((), device=dev), mesh, axes)
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        rep["secs"][name] = time.perf_counter() - t0
+        rep["launches"][name] = {op: c for op, c in LAUNCHES.items() if c}
+        return out
+
+    def separation(res_reps, emb):
+        reps = res_reps.points[res_reps.mask]
+        inter, intra, n_blobs, acc = blob_separation(reps, emb, centers)
+        return {"inter": inter, "intra": intra, "blobs": n_blobs,
+                "acc": acc, "finite": bool(torch.isfinite(emb).all()),
+                "shape": list(emb.shape)}
+
+    # warm-up: the modules and kernels every step loads, on a small slice
+    step("warm", lambda: pipeline.run(
+        dataclasses.replace(cfg, top_k=2000), shard[:WARMUP_POINTS // world],
+        mesh=mesh, data_axes=axes, device=dev))
+
+    # (a) the one-shot sketch stage on every rank's row block
+    with GeoSpy() as spy:
+        res = step("a", lambda: pipeline.run(cfg, shard, mesh=mesh,
+                                             data_axes=axes, device=dev))
+    g = spy.results[-1]
+    rep["a"] = {"table": digest(g.merged.table), "hh": digest(*res.hh),
+                "total": float(g.total_count), "evict": float(g.evict_max),
+                "n_hh": int(res.hh.mask.sum()), "coverage": res.coverage,
+                "grid": [res.grid.lo, res.grid.hi],
+                "embedding": digest(res.embedding),
+                "stages": res.stage_seconds,
+                **separation(res.reps, res.embedding)}
+    del g
+
+    # (b) the same block streamed in chunks through shard_fn
+    nb = -(-shard.shape[0] // MESH_CHUNK)
+
+    def shard_fn(i, b):
+        return shard[b * MESH_CHUNK:(b + 1) * MESH_CHUNK], None
+    with GeoSpy() as spy:
+        res_b = step("b", lambda: pipeline.run_streaming(
+            cfg, mesh=mesh, data_axes=axes, shard_fn=shard_fn,
+            num_batches=nb, grid=res.grid, device=dev))
+    g = spy.results[-1]
+    rep["b"] = {"table": digest(g.merged.table), "hh": digest(*res_b.hh),
+                "total": float(g.total_count), "evict": float(g.evict_max),
+                "batches": nb, "stages": res_b.stage_seconds}
+    del g, res_b, shard
+
+    # (c) UMAP on (a)'s representatives over a 1-D mesh of all ranks
+    emesh = mesh_mod.make_embed_mesh()
+    ecfg = pipeline.resolve_embed_cfg(cfg)
+    x, w = res.reps.points[res.reps.mask], res.rep_weight
+    one = dataclasses.replace(ecfg, n_epochs=1)
+    u1 = umap.run_umap(x, one, weights=w, generator=torch.Generator(
+        device=dev).manual_seed(11))
+    u2 = umap.run_umap(x, one, weights=w, mesh=emesh,
+                       generator=torch.Generator(device=dev).manual_seed(11))
+    rep["c_epoch1"] = {"err": (u1 - u2).abs().max().item(),
+                       "scale": max(1.0, u1.abs().max().item())}
+    rows_e, n_pad = mesh_mod.row_block(x.shape[0], world)
+    y_blk = torch.zeros((rows_e, ecfg.dims), device=dev)
+    part = torch.zeros((n_pad, ecfg.dims), device=dev)
+
+    def collectives(y, p):
+        for _ in range(MESH_COLLECTIVE_ROUNDS):
+            mesh_mod.all_gather(y, emesh, mesh_mod.EMBED_AXIS)
+            mesh_mod.all_reduce(p, emesh, mesh_mod.EMBED_AXIS)
+    step("collectives", lambda: collectives(y_blk, part))
+    if backend == "gloo":     # the same on host tensors: gloo alone
+        step("collectives_host", lambda: collectives(y_blk.cpu(),
+                                                     part.cpu()))
+    reps, emb, _, _ = step("c", lambda: pipeline.embed_stage(
+        dataclasses.replace(cfg, embed_mesh=emesh), res.grid, res.hh,
+        device=dev))
+    rep["c"] = {"embedding": digest(emb), "n": x.shape[0],
+                **separation(reps, emb)}
+    return rep
+
+
+def phase_mesh(device, pts, pts_np, spec):
+    """Path M: the mesh tier, every rank a process, on the paper's four
+    sites.  Holds each layout's steps to their gates (see the module
+    docstring) and counts every rank's launches under ``M``."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.configs.sns_paper import CANCER
+    from repro_torch.core import pipeline, quantize
+
+    smi = nvidia_smi_line()
+    cfg = dataclasses.replace(CANCER, embed_knn_method="exact")
+    n_epochs = pipeline.resolve_embed_cfg(cfg).n_epochs
+    n = pts_np.shape[0]
+    grid = quantize.fit_grid(pts, cfg.bins)
+    table = digest(one_shot_table(cfg, grid, pts,
+                                  pipeline._hash_params(cfg, device, None)))
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="sns-mesh-"))
+    ctx = mp.get_context("spawn")
+    try:
+        np.save(root / "points.npy", pts_np)
+        log(f"[mesh] {n} points written once to {root} for the ranks to "
+            f"map; the single-device one-shot table {table} (default hash "
+            f"draw); {smi}")
+        for name, world, backend, shared in mesh_layouts(
+                torch.cuda.device_count()):
+            tmp = root / name
+            tmp.mkdir()
+            t0 = time.perf_counter()
+            reps = run_ranks(ctx, world, backend, shared, tmp)
+            wall = time.perf_counter() - t0
+            mesh_gates(name, world, reps, table, n, n_epochs, spec.n_clusters,
+                       wall, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_ranks(ctx, world, backend, shared, tmp):
+    """Spawn ``world`` ranks and return their reports by rank.  A rank
+    that fails or outlives MESH_TIMEOUT_S fails the run; every rank is
+    stopped before this returns or raises."""
+    import queue as queue_mod
+    q = ctx.Queue()
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, world, backend, shared, str(tmp), q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    reports, errors = {}, []
+    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    try:
+        while len(reports) + len(errors) < world and not errors:
+            try:
+                rank, status, body = q.get(
+                    timeout=max(1.0, deadline - time.perf_counter()))
+            except queue_mod.Empty:
+                raise AssertionError(
+                    f"[mesh] ranks timed out after {MESH_TIMEOUT_S} s: "
+                    f"{world - len(reports)} of {world} did not report")
+            if status == "ok":
+                reports[rank] = body
+            else:
+                errors.append(f"rank {rank}:\n{body}")
+        if errors:
+            raise AssertionError("[mesh] a rank failed:\n" + "\n".join(errors))
+        for p in procs:
+            p.join(timeout=60)
+            if p.exitcode != 0:
+                raise AssertionError(f"[mesh] rank process exit code "
+                                     f"{p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+    return [reports[r] for r in range(world)]
+
+
+def mesh_gates(name, world, reps, table, n, n_epochs, n_blobs, wall, smi):
+    """Path M's gates for one layout, its prints and its launches (under
+    ``M:<layout>:<step>:r<rank>``)."""
+    def per_epoch(r, step):
+        secs = r["secs"].get(step)
+        return "n/a" if secs is None else \
+            f"{secs / MESH_COLLECTIVE_ROUNDS * 1e3:.3f}"
+    first = reps[0]
+    for r in reps:
+        for s in ("a", "b", "c"):
+            PATH_LAUNCHES[f"M:{name}:{s}:r{r['rank']}"] = r["launches"][s]
+    nb = [r["b"]["batches"] for r in reps]
+    want = {
+        "a": lambda r: {"sketch_update_table": 1, "sketch_estimate_table": 1,
+                        "segment_reduce": 2 * n_epochs},
+        "b": lambda r: {"sketch_update_table": r["b"]["batches"],
+                        "sketch_estimate_table": 1,
+                        "segment_reduce": 2 * n_epochs},
+        "c": lambda r: {"segment_reduce": 2 * n_epochs},
+        "collectives": lambda r: {}, "collectives_host": lambda r: {}}
+    fails = []
+    for r in reps:
+        tag = f"[mesh] {name} rank {r['rank']}"
+        for s, fn in want.items():
+            if s in r["launches"] and r["launches"][s] != fn(r):
+                fails.append(f"{tag} step {s} launches {r['launches'][s]}, "
+                             f"expected {fn(r)}")
+        a, b, c, e1 = r["a"], r["b"], r["c"], r["c_epoch1"]
+        checks = [
+            (a["table"] == table, "(a) merged table != single-device table"),
+            (a["total"] == n, f"(a) total_count {a['total']} != {n}"),
+            (a["hh"] == first["a"]["hh"], "(a) HH differ between ranks"),
+            (a["finite"] and a["blobs"] == n_blobs
+             and a["inter"] > 1.5 * a["intra"], "(a) blobs do not separate"),
+            (b["table"] == a["table"], "(b) streaming table != (a)'s"),
+            (b["total"] == n, f"(b) total_count {b['total']} != {n}"),
+            (e1["err"] <= 1e-4 * e1["scale"],
+             f"(c) epoch 1 off by {e1['err']} (scale {e1['scale']})"),
+            (c["finite"] and c["blobs"] == n_blobs
+             and c["inter"] > 1.5 * c["intra"], "(c) blobs do not separate"),
+            (a["shape"] == c["shape"] == [c["n"], 2],
+             f"embedding shapes {a['shape']}, {c['shape']}"),
+            (world > 1 or c["embedding"] == a["embedding"],
+             "(c) one rank's mesh embedding != the single-device one")]
+        fails += [f"{tag} {msg}" for ok, msg in checks if not ok]
+    for r in reps:
+        a, b, c = r["a"], r["b"], r["c"]
+        log(f"[mesh] {name} rank {r['rank']} (block {r['index']}, {r['rows']}"
+            f" rows): (a) run {r['secs']['a']:.3f} s (stages "
+            + ", ".join(f"{k} {v:.3f}" for k, v in a["stages"].items())
+            + f"), #HH {a['n_hh']}, coverage {a['coverage']:.4f}, "
+            f"evict_max {a['evict']}, table {a['table']}, separation "
+            f"{a['inter']:.3f} vs {a['intra']:.3f}; (b) run_streaming "
+            f"{r['secs']['b']:.3f} s over {b['batches']} batches (stages "
+            + ", ".join(f"{k} {v:.3f}" for k, v in b["stages"].items())
+            + f"), table {b['table']}; (c) epoch-1 max|single - mesh| "
+            f"{r['c_epoch1']['err']:.3e} (scale {r['c_epoch1']['scale']:.3f})"
+            f", embed_stage {r['secs']['c']:.3f} s on {c['n']} reps "
+            f"({r['secs']['c'] / n_epochs * 1e3:.3f} ms an epoch, kNN and "
+            f"replicas included), separation {c['inter']:.3f} vs "
+            f"{c['intra']:.3f}, collectives "
+            f"{per_epoch(r, 'collectives')} ms an epoch (one all_gather + "
+            f"one all_reduce; on host tensors "
+            f"{per_epoch(r, 'collectives_host')}); warm-up "
+            f"{r['secs']['warm']:.3f} s; launches a {r['launches']['a']}, "
+            f"b {r['launches']['b']}, c {r['launches']['c']}")
+    slowest = {s: max(r["secs"][s] for r in reps) for s in ("a", "b", "c")}
+    log(f"[mesh] {name}: {world} rank(s), the whole layout {wall:.1f} s "
+        f"(spawn and import included); (a) {slowest['a']:.3f} s, (b) "
+        f"{slowest['b']:.3f} s over {nb} batches, (c) {slowest['c']:.3f} s "
+        f"(slowest rank); {smi}")
+    if fails:
+        raise AssertionError("\n".join(fails))
+
+
 def phase_ops(device, pts, cfg):
     """The reference's fused-ingest entry points on the first 2^20 main
     points in chunks of ``cfg.ingest_chunk``: K6 and K7 once a chunk, K8
@@ -2088,25 +2456,22 @@ def phase_sketch_kernels(device, pts, cfg, state, runs):
 
 
 def phase_parity(cfg, device, stream_peak, stream_points):
-    """Sketch stage on the card vs the port's CPU run, same hash params:
+    """Sketch stage on the card vs the port's CPU run, each at its own
+    default hash draw (the reference's threefry bits on both devices):
     one-shot, then streaming (the fold's table, reservoir, count and
     watermark too).  The card's streaming run also gives the ingest
     stage's peak memory at 2^20 points, which path I's at 26M must be
     within 10 % of."""
     import torch
-    from repro_torch.core import hashing, pipeline
+    from repro_torch.core import pipeline
     from repro_torch.data.synthetic import MixtureSpec, gaussian_mixture
 
     pts, _ = gaussian_mixture(PARITY_POINTS, MixtureSpec(dims=8), seed=1)
-    hp = hashing.make_params(torch.Generator().manual_seed(cfg.seed),
-                             cfg.rows)
     t0 = time.perf_counter()
-    g_gpu, hh_gpu = pipeline.sketch_stage(cfg, pts, device=device,
-                                          hash_params=hp)
+    g_gpu, hh_gpu = pipeline.sketch_stage(cfg, pts, device=device)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    g_cpu, hh_cpu = pipeline.sketch_stage(cfg, pts, device="cpu",
-                                          hash_params=hp)
+    g_cpu, hh_cpu = pipeline.sketch_stage(cfg, pts, device="cpu")
     t2 = time.perf_counter()
     same = g_gpu == g_cpu and all(
         torch.equal(a.cpu(), b) for a, b in zip(hh_gpu, hh_cpu))
@@ -2123,7 +2488,7 @@ def phase_parity(cfg, device, stream_peak, stream_points):
         for dev in (device, "cpu"):
             t0 = time.perf_counter()
             out[str(dev)] = pipeline.sketch_stage_streaming(
-                cfg, factory, device=dev, hash_params=hp)
+                cfg, factory, device=dev)
             torch.cuda.synchronize()
             out[str(dev) + "_s"] = time.perf_counter() - t0
     (s_gpu, peak), (s_cpu, _) = spy.calls
@@ -2205,6 +2570,7 @@ def main(argv=None) -> int:
     k6, k7, k8 = phase_sketch_kernels(device, pts, cfg_i, state, runs)
     del state, runs
     phase_service(device, pts, pts_np, spec)
+    phase_mesh(device, pts, pts_np, spec)
     del pts, pts_np
     phase_parity(cfg, device, peak, args.points)
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")

@@ -4,11 +4,12 @@ This system has no weights: its "parameters" are the random draws the
 reference makes with JAX's threefry — hash parameters, cell-keyed replica
 jitter, the tSNE and UMAP inits, UMAP's per-epoch negative samples and the
 approximate kNN's rotations, window offsets and descent slots.  The port
-reproduces threefry only for the replica jitter (``core.prng``); the
-others it draws from ``torch.Generator``s (and, for the descent slots, a
-counter hash).  Where a test holds the port to the reference bit for
-bit, it makes the reference's draws with JAX, hands them over as numpy,
-and these functions turn them into the port's types.
+reproduces threefry for the hash parameters and the replica jitter
+(``core.prng``); the others it draws from ``torch.Generator``s (and, for
+the descent slots, a counter hash).  Where a test holds the port to the
+reference bit for bit, it makes the reference's draws with JAX, hands
+them over as numpy, and these functions turn them into the port's
+types.
 :func:`ingest_state_from_numpy` does the same for a streaming fold's
 state, so the port can finish a stream the reference began.
 """

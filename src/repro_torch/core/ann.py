@@ -36,7 +36,7 @@ what keeps a sharded build equal to this one.  :class:`AnnDraws` takes
 any of them from outside instead (the parity tests feed the
 reference's).
 
-Not ported: the mesh build (``_ann_build_mesh``: ROADMAP P12).
+Not ported: the mesh build (``_ann_build_mesh``: ROADMAP P12b).
 """
 from __future__ import annotations
 
@@ -415,7 +415,7 @@ def _ann_build(x: torch.Tensor, k: int, cfg: AnnConfig, draws: AnnDraws,
 
 def _ann_build_mesh(x, k: int, cfg: AnnConfig, mesh):
     raise NotImplementedError("mesh-sharded approximate kNN is not ported "
-                              "yet: ROADMAP P12")
+                              "yet: ROADMAP P12b")
 
 
 def ann_knn_graph(x: torch.Tensor, k: int, cfg: Optional[AnnConfig] = None,

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.core import u64
 
 INVALID_KEY = 0xFFFFFFFF
@@ -298,3 +299,10 @@ def merge_runs(pool: Candidates, runs: KeyRuns, k: int
                      count=torch.where(valid, csum[src], 0.0),
                      mask=valid)
     return out, evicted_max
+
+
+def all_gather(cands: Candidates, mesh, axes) -> Candidates:
+    """Every rank's candidates along mesh dimension(s) ``axes``, tiled in
+    rank order into one (shards·L,) set (the reference's tiled
+    ``all_gather``); the mask travels as uint8."""
+    return Candidates(*[mesh_mod.all_gather(f, mesh, axes) for f in cands])

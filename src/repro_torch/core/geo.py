@@ -1,10 +1,21 @@
-"""Geo-distributed sketching, the host tier: the paper's topology (§V) as
-independent per-site jobs.
+"""Geo-distributed sketching: the paper's topology (§V) in two tiers.
 
-Each site folds its own stream into a (sketch ⊕ reservoir) summary and
-ships only that summary; the master merges.  Only hashed, signed sums
+Data at different sites is sketched in place; only the fixed-size
+sketches move, and they merge by addition.  Only hashed, signed sums
 cross between sites: the sketch is non-invertible, raw coordinates never
-leave a shard.  The sites are host-level jobs (:func:`shard_ingest_jobs`)
+leave a shard.
+
+The SPMD tier (:func:`sketch_shard`, :func:`geo_extract`,
+:func:`geo_extract_from_shards`) runs one program on every rank of a
+``torch.distributed`` mesh (``core.mesh``): each rank sketches its own
+row block, the tables all-reduce over ``("data", "pod")`` (within a data
+center, then across), the candidates all-gather, and every rank recovers
+the same global heavy hitters.  Collectives cannot lose a participant,
+so a dead rank fails the whole run: this tier is all-or-nothing.
+
+The host tier: each site folds its own stream into a (sketch ⊕
+reservoir) summary and ships only that summary; the master merges.  The
+sites are host-level jobs (:func:`shard_ingest_jobs`)
 run by ``resilience.collect_shards``, so the whole failure menu applies
 and is handled by :func:`resilient_extract`: transient errors retry
 under a ``resilience.RetryPolicy``, stragglers are cut off at a deadline,
@@ -15,64 +26,149 @@ the heavy-hitter error bound widens by the estimated lost mass), and
 
 All jobs fold with the SAME hash parameters (the paper's
 identical-hash-functions contract; the merge is linear only under it):
-drawn once from a generator seeded from ``seed`` on the run's device, or
-given as ``hash_params``.  On the card the jobs' folds run in threads on
-one device; each ships its state as CPU tensors and takes its digest
-from that copy.
-
-The reference's SPMD tier (:func:`sketch_shard`, :func:`geo_extract`,
-:func:`geo_extract_from_shards`: one program over a device mesh) is not
-ported yet; each raises ``NotImplementedError`` naming ROADMAP P12.
+the reference's threefry draw from ``seed`` (:func:`shared_params`, the
+same bits on every device and rank), or given as ``hash_params``.  On
+the card the host tier's jobs fold in threads on one device; each ships
+its state as CPU tensors and takes its digest from that copy.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import (Callable, Dict, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
+from repro_torch.core import candidates as cand_mod
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import hashing
 from repro_torch.core import heavy_hitters as hh_mod
-from repro_torch.core import resilience
+from repro_torch.core import mesh as mesh_mod
+from repro_torch.core import prng, quantize, resilience
+from repro_torch.core import sketch as sketch_mod
 from repro_torch.core import stream as stream_mod
+from repro_torch.core.candidates import Candidates
 from repro_torch.core.device import resolve_device
 from repro_torch.core.heavy_hitters import HeavyHitters
 from repro_torch.core.quantize import GridSpec
 from repro_torch.core.sketch import CountSketch
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(f"geo.{name} (the mesh-sharded SPMD sketch "
-                              f"stage) is not ported yet: ROADMAP P12")
+class GeoSketchResult(NamedTuple):
+    hh: HeavyHitters            # the global top-K, the same on every rank
+    merged: CountSketch         # the merged sketch, the same on every rank
+    total_count: torch.Tensor   # all-reduced item count (stream mass)
+    # all-reduced MAX of the candidate stage's watermark: the largest
+    # count any shard withheld from the candidate set (local top-L cut in
+    # the one-shot path, reservoir eviction in the streaming path); 0 ⇒
+    # every occupied cell was proposed, the HH candidate set is complete
+    evict_max: torch.Tensor
 
 
-def sketch_shard(*args, **kwargs):
-    """One mesh device's sketch work: ROADMAP P12."""
-    _not_ported("sketch_shard")
+def sketch_shard(sk: CountSketch, grid: GridSpec, points: torch.Tensor,
+                 candidate_pool: int, mask: Optional[torch.Tensor] = None
+                 ) -> Tuple[CountSketch, Candidates, torch.Tensor]:
+    """One site's work: quantize → pack → ONE sort + RLE feeding both the
+    sketch scatter (K7 on the card) and the local top-L.  Also returns the
+    local truncation watermark (the largest count not proposed; 0 =
+    none)."""
+    key_hi, key_lo = quantize.points_to_keys(grid, points)
+    runs = cand_mod.sorted_runs(
+        key_hi, key_lo, mask=mask,
+        assume_hi_zero=grid.dims * grid.bits_per_dim <= 32)
+    del key_hi, key_lo
+    sk = sketch_mod.update_runs(sk, runs)
+    cands, dropped = cand_mod.topk_from_runs(runs, candidate_pool,
+                                             return_dropped=True)
+    return sk, cands, dropped
 
 
-def geo_extract(*args, **kwargs):
-    """Mesh-sharded one-shot heavy-hitter extraction: ROADMAP P12."""
-    _not_ported("geo_extract")
+def _reduced(mesh, axes, hh: HeavyHitters, merged: CountSketch,
+             count: torch.Tensor, evict: torch.Tensor) -> GeoSketchResult:
+    return GeoSketchResult(
+        hh=hh, merged=merged,
+        total_count=mesh_mod.all_reduce(count, mesh, axes, "sum"),
+        evict_max=mesh_mod.all_reduce(evict, mesh, axes, "max"))
 
 
-def geo_extract_from_shards(*args, **kwargs):
-    """Mesh-sharded streaming heavy-hitter extraction: ROADMAP P12."""
-    _not_ported("geo_extract_from_shards")
+def geo_extract(mesh, grid: GridSpec, points, *, rows: int, log2_cols: int,
+                top_k: int, candidate_pool: int = 0,
+                data_axes: Union[str, Sequence[str]] = ("data",),
+                seed: int = 0,
+                hash_params: Optional[hashing.MulShiftParams] = None,
+                device=None) -> GeoSketchResult:
+    """Distributed heavy-hitter extraction; every rank of ``mesh`` calls
+    it with its own shard.
+
+    ``points``: this rank's (n, D) rows, on the host or a device; they go
+    to ``device`` (None = the card).  The rank whose ``linear_index(mesh,
+    data_axes)`` is r holds the r-th contiguous row block of the global
+    array; no rank sees another's rows.  Each rank sketches its shard,
+    the sketches all-reduce (``data_axes`` innermost first), the
+    candidates all-gather, and every rank recovers the same global
+    top-K.  All ranks fold with the same hash parameters: the
+    reference's draw from ``seed``, or ``hash_params``."""
+    data_axes = mesh_mod.check_axes(mesh, data_axes)
+    dev = resolve_device(device)
+    pool = candidate_pool or 2 * top_k
+    pts = torch.as_tensor(points, device=dev)
+    pts = pts.reshape(-1, pts.shape[-1]).to(torch.float32)
+    sk0 = sketch_mod.init(shared_params(seed, rows, dev, hash_params),
+                          log2_cols)
+    sk, cands, dropped = sketch_shard(sk0, grid, pts, pool)
+    hh, merged = hh_mod.distributed_extract(sk, cands, top_k, data_axes,
+                                            mesh)
+    n_local = torch.full((), pts.shape[0], dtype=torch.float32, device=dev)
+    return _reduced(mesh, data_axes, hh, merged, n_local,
+                    dropped.to(torch.float32))
+
+
+def geo_extract_from_shards(mesh, grid: GridSpec,
+                            shard_fn: Callable[[int, int], tuple], *,
+                            rows: int, log2_cols: int, top_k: int,
+                            candidate_pool: int = 0,
+                            data_axes: Union[str, Sequence[str]] = ("data",),
+                            seed: int = 0, num_batches: int = 1,
+                            hash_params: Optional[hashing.MulShiftParams]
+                            = None, device=None) -> GeoSketchResult:
+    """Streaming variant: each rank loads its own batches through
+    ``shard_fn(rank_index, batch) -> (points, mask)`` (``rank_index`` is
+    ``linear_index(mesh, data_axes)``, ``batch`` in
+    ``range(num_batches)``, ``mask`` None or an (n,) bool) and folds them
+    one at a time with ``stream.ingest_step`` (one sort a batch, K7 on
+    the card), so a rank's memory is O(batch + candidate_pool + sketch)
+    whatever the stream's length.  Then the same merge as
+    :func:`geo_extract`."""
+    data_axes = mesh_mod.check_axes(mesh, data_axes)
+    dev = resolve_device(device)
+    pool = candidate_pool or 2 * top_k
+    idx = mesh_mod.linear_index(mesh, data_axes)
+    st = stream_mod.from_sketch(
+        sketch_mod.init(shared_params(seed, rows, dev, hash_params),
+                        log2_cols), pool)
+    for b in range(num_batches):
+        pts, mask = shard_fn(idx, b)
+        pts = torch.as_tensor(pts, device=dev)
+        pts = pts.reshape(-1, pts.shape[-1]).to(torch.float32)
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=dev).reshape(-1)
+        st = stream_mod.ingest_step(st, grid, pts, mask=mask)
+    hh, merged = hh_mod.distributed_extract(st.sketch, st.cands, top_k,
+                                            data_axes, mesh)
+    return _reduced(mesh, data_axes, hh, merged, st.count, st.evict_max)
 
 
 def shared_params(seed: int, rows: int, device,
                   hash_params: Optional[hashing.MulShiftParams] = None
                   ) -> hashing.MulShiftParams:
     """The hash parameters every site folds with: ``hash_params`` on
-    ``device`` if given, else R drawn from a generator on ``device``
-    seeded from ``seed``."""
+    ``device`` if given, else the reference's draw
+    ``make_params(key(seed), rows)`` made on ``device`` (threefry in
+    int64 words: every device and every rank draws the same bits)."""
     if hash_params is None:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-        hash_params = hashing.make_params(gen, rows)
+        hash_params = hashing.make_params(prng.key(seed, device=device),
+                                          rows)
     return hash_params.to(device)
 
 

@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import u64
+from repro_torch.core import prng, u64
 
 
 class MulShiftParams(NamedTuple):
@@ -36,13 +36,11 @@ class MulShiftParams(NamedTuple):
         return MulShiftParams(*[p.to(device) for p in self])
 
 
-def make_params(generator: torch.Generator, rows: int) -> MulShiftParams:
-    """Draw R independent hash functions' parameters on the generator's
-    device (the reference draws them with threefry; see carry.py for
-    feeding its draws in)."""
-    bits = torch.randint(0, 1 << 32, (6, rows), generator=generator,
-                         dtype=torch.int64, device=generator.device)
-    return MulShiftParams(*bits.unbind(0))
+def make_params(key: prng.Key, rows: int) -> MulShiftParams:
+    """Draw R independent hash functions' parameters on the key's device:
+    the reference's ``jax.random.bits(key, (6, R), uint32)``, computed by
+    ``prng.bits`` in int64 words, so every device draws the same bits."""
+    return MulShiftParams(*prng.bits(key, (6, rows)).unbind(0))
 
 
 def _accumulate(params: MulShiftParams, key_hi: torch.Tensor,

@@ -1,7 +1,19 @@
-"""Heavy-hitter recovery: candidates × sketch → top-K cells."""
+"""Heavy-hitter recovery: candidates × sketch → top-K cells.
+
+Single-shard and distributed variants.  The distributed variant is the
+paper's geo-distributed topology over the ranks of a mesh:
+
+    per rank  :  quantize → pack → local sketch update + local top-L
+    data dim  :  all-reduce(sketch)      [merge within a data center]
+    pod dim   :  all-reduce(sketch)      [merge across data centers]
+    every rank:  all-gather(candidates) → dedupe → estimate on the merged
+                 sketch → global top-K   [the master's extraction]
+
+Every rank finishes with the same top-K list.
+"""
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -39,6 +51,26 @@ def extract(sk: CountSketch, key_hi: torch.Tensor, key_lo: torch.Tensor,
     cands = cand_mod.local_topk(key_hi, key_lo, pool,
                                 values=values, mask=mask)
     return from_candidates(sk, cands, k)
+
+
+def distributed_extract(sk_local: CountSketch, cands_local: Candidates,
+                        k: int, merge_axes: Union[str, Sequence[str]], mesh
+                        ) -> Tuple[HeavyHitters, CountSketch]:
+    """Global heavy hitters from every rank's sketch and candidates:
+    call it on every rank of ``mesh``.  ``merge_axes``: the mesh
+    dimension(s) the data is sharded over, innermost (fast interconnect)
+    first, e.g. ``("data", "pod")``.  Returns (the heavy hitters, the
+    merged sketch), the same on every rank; the top-k runs on the merged
+    table (K8 on the card)."""
+    if isinstance(merge_axes, str):
+        merge_axes = (merge_axes,)
+    merged = sk_local
+    for ax in merge_axes:           # hierarchical: data first, pod second
+        merged = sketch_mod.psum_merge(merged, mesh, ax)
+    gathered = cands_local
+    for ax in merge_axes:
+        gathered = cand_mod.all_gather(gathered, mesh, ax)
+    return from_candidates(merged, gathered, k), merged
 
 
 def exact_counts(key_hi: torch.Tensor, key_lo: torch.Tensor,

@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import ann as ann_mod
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.core.candidates import smallest_k
 from repro_torch.core.tsne import pairwise_sq_dists
 
@@ -73,16 +74,35 @@ def knn_graph(x: torch.Tensor, k: int, *, block: Optional[int] = None,
     streams the distance matrix in row chunks: peak O(block · N)),
     ``"ann"`` (``ann`` an optional ``AnnConfig``, ``ann_draws`` optional
     ``AnnDraws``) or ``"auto"`` (exact up to ``AnnConfig.auto_threshold``
-    points, ann above)."""
+    points, ann above).
+
+    With ``mesh`` (a 1-D embed mesh, see ``core.mesh``; every rank passes
+    the same ``x``) the exact build is row-block sharded: each rank
+    computes its padded row block against the whole ``x``, and one
+    all-gather of the indices and distances makes the graph whole on
+    every rank, each row as the single-device build gives it.  The
+    approximate build on a mesh raises (ROADMAP P12b)."""
     n = x.shape[0]
     k = min(int(k), max(n - 1, 1))
     cfg = _use_ann(method, n, ann)
     if cfg is not None:
         return ann_mod.ann_knn_graph(x, k, cfg, mesh=mesh, draws=ann_draws)
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded kNN is not ported yet: "
-                                  "ROADMAP P12")
-    return _knn_rows(x, torch.arange(n, device=x.device), x, k, block)
+    if mesh is None:
+        return _knn_rows(x, torch.arange(n, device=x.device), x, k, block)
+    mesh = mesh_mod.resolve_mesh(mesh)
+    axis = mesh_mod.mesh_axis(mesh)
+    rows_per, _ = mesh_mod.row_block(n, mesh_mod.axis_size(mesh, axis))
+    lo = mesh.get_local_rank(axis) * rows_per
+    ids = torch.arange(lo, lo + rows_per, device=x.device)
+    x_blk = x[lo:lo + rows_per]
+    # padded rows carry id -1 (never a column id); their rows are cut
+    x_blk = torch.cat([x_blk, x.new_zeros((rows_per - x_blk.shape[0],
+                                           x.shape[1]))])
+    ids = torch.where(ids < n, ids, -1)
+    b = None if block is None else min(block, rows_per)
+    idx, dist = _knn_rows(x_blk, ids, x, k, b)
+    return (mesh_mod.all_gather(idx, mesh, axis)[:n],
+            mesh_mod.all_gather(dist, mesh, axis)[:n])
 
 
 def knn_query(q: torch.Tensor, x: torch.Tensor, k: int, *,

@@ -10,13 +10,13 @@
 Entry points (:func:`run`, :func:`run_streaming`, :func:`sketch_stage`,
 :func:`sketch_stage_streaming`, :func:`embed_stage`) run on the card
 unless the caller asks for another device: ``device=None`` means
-``cuda`` and raises where there is none.  The replica jitter is the
-reference's own threefry draw (``core.prng``) under the key
-``split(key(seed + 1))[0]``, keyed by cell.  The other random draws come
-from ``torch.Generator``s seeded from ``cfg.seed`` on the run's device
-(hash parameters from ``seed``; the embedder's init and UMAP's negatives
-from ``seed + 1``).  :class:`Draws` takes any of them from outside
-instead.
+``cuda`` and raises where there is none.  The hash parameters and the
+replica jitter are the reference's own threefry draws (``core.prng``):
+the hash parameters from ``key(seed)``, the jitter under the key
+``split(key(seed + 1))[0]``, keyed by cell.  The embedder's init and
+UMAP's negatives come from a ``torch.Generator`` seeded from
+``cfg.seed + 1`` on the run's device.  :class:`Draws` takes any of them
+from outside instead.
 
 The approximate kNN build (``core.ann``) draws from its own generators
 seeded from ``AnnConfig.seed``; ``Draws.ann`` takes them from outside.
@@ -28,8 +28,14 @@ in bounded memory.  :func:`run_resilient` takes independent per-shard
 chunk sources instead and survives lost, late and corrupt shards
 (``core.geo``, ``core.resilience``, ``core.faults``).
 
-Not ported yet, each raising ``NotImplementedError`` naming ROADMAP P12:
-``mesh=``, ``shard_fn=`` and ``embed_mesh``.
+The mesh tier (``core.mesh``): with ``mesh=`` (a ``DeviceMesh``) every
+rank calls :func:`run` with its own row block of the points, or
+:func:`run_streaming` with ``shard_fn=``; the sketch stage runs through
+``geo.geo_extract`` / ``geo.geo_extract_from_shards`` and every rank
+ends with the same heavy hitters, then embeds them.  ``cfg.embed_mesh``
+row-block-shards the UMAP embed over the ranks of a 1-D mesh
+(``umap.run_umap(mesh=)``); on the tSNE embedder it raises
+``NotImplementedError`` naming ROADMAP P12b.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import torch
 
 from repro_torch.core import candidates as cand_mod
 from repro_torch.core import geo, hashing, prng, quantize, replicas
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.core import heavy_hitters as hh_mod
 from repro_torch.core import sketch as sketch_mod
 from repro_torch.core import stream as stream_mod
@@ -84,7 +91,7 @@ class SnsConfig:
     # (the approximate engine, core.ann)
     embed_knn_method: str = "auto"
     embed_ann: object = None
-    embed_mesh: object = None      # mesh-parallel embed: ROADMAP P12
+    embed_mesh: object = None      # None | rank count | 1-D DeviceMesh
     seed: int = 0
 
     def __post_init__(self):
@@ -194,18 +201,47 @@ def _points_tensor(points, device: torch.device) -> torch.Tensor:
     return pts.reshape(-1, pts.shape[-1]).to(torch.float32)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded sketch stage is not ported "
-                                  "yet: ROADMAP P12")
-
-
 def _hash_params(cfg: SnsConfig, dev: torch.device,
                  hash_params: Optional[hashing.MulShiftParams]
                  ) -> hashing.MulShiftParams:
-    """The given hash parameters on ``dev``, else R drawn from a
-    generator on ``dev`` seeded from ``cfg.seed``."""
+    """The given hash parameters on ``dev``, else the reference's draw
+    from ``cfg.seed`` (``geo.shared_params``)."""
     return geo.shared_params(cfg.seed, cfg.rows, dev, hash_params)
+
+
+def _mesh_grid(cfg: SnsConfig, pts: torch.Tensor, mesh, data_axes
+               ) -> GridSpec:
+    """The grid of the global array from every rank's shard: each rank's
+    per-dimension min and max, all-reduced MIN/MAX over ``data_axes``.
+    Min and max are exact, so this equals ``fit_grid`` on the
+    concatenation bit for bit; no rank sees another's rows."""
+    d = pts.shape[-1]
+    if pts.shape[0]:
+        lo, hi = pts.amin(0), pts.amax(0)
+    else:
+        lo = torch.full((d,), float("inf"), device=pts.device)
+        hi = torch.full((d,), float("-inf"), device=pts.device)
+    lo = mesh_mod.all_reduce(lo, mesh, data_axes, "min")
+    hi = mesh_mod.all_reduce(hi, mesh, data_axes, "max")
+    return quantize.fit_grid(pts, cfg.bins, lo=lo.cpu().numpy(),
+                             hi=hi.cpu().numpy())
+
+
+def _mesh_extract(cfg: SnsConfig, pts: torch.Tensor,
+                  grid: Optional[GridSpec], mesh, data_axes,
+                  dev: torch.device,
+                  hash_params: Optional[hashing.MulShiftParams]
+                  ) -> Tuple[GridSpec, "geo.GeoSketchResult"]:
+    """The mesh sketch stage on this rank's shard: the agreed grid (from
+    the shards' min/max when none is given), then ``geo.geo_extract``."""
+    data_axes = mesh_mod.check_axes(mesh, data_axes)
+    if grid is None:
+        grid = _mesh_grid(cfg, pts, mesh, data_axes)
+    return grid, geo.geo_extract(
+        mesh, grid, pts, rows=cfg.rows, log2_cols=cfg.log2_cols,
+        top_k=cfg.top_k, candidate_pool=cfg.candidate_pool,
+        data_axes=data_axes, seed=cfg.seed, hash_params=hash_params,
+        device=dev)
 
 
 def _sync(device: torch.device) -> None:
@@ -214,30 +250,39 @@ def _sync(device: torch.device) -> None:
 
 
 def sketch_stage(cfg: SnsConfig, points, grid: Optional[GridSpec] = None,
-                 mesh=None, *, device=None,
+                 mesh=None, data_axes=("data",), *, device=None,
                  hash_params: Optional[hashing.MulShiftParams] = None
                  ) -> Tuple[GridSpec, HeavyHitters]:
     """Stages 1-2: grid + heavy hitters.  ``points`` may be a resident
     (N, D) array or a chunk iterator / factory (the streaming path, as
-    :func:`sketch_stage_streaming`)."""
+    :func:`sketch_stage_streaming`).  With ``mesh`` every rank passes its
+    own row block (see :func:`run`)."""
     grid, hh, _ = _sketch_stage_impl(cfg, points, grid=grid, mesh=mesh,
-                                     device=device, hash_params=hash_params)
+                                     data_axes=data_axes, device=device,
+                                     hash_params=hash_params)
     return grid, hh
 
 
 def _sketch_stage_impl(cfg: SnsConfig, points, grid: Optional[GridSpec],
-                       mesh=None, *, device=None,
+                       mesh=None, data_axes=("data",), *, device=None,
                        hash_params: Optional[hashing.MulShiftParams] = None
                        ) -> Tuple[GridSpec, HeavyHitters, float]:
     """Stages 1-2 plus the candidate-stage watermark (the largest count
     withheld from the candidate set; 0 = complete)."""
-    _no_mesh(mesh)
     dev = resolve_device(device)
     if not _is_points_array(points):
+        if mesh is not None:
+            raise ValueError(
+                "chunk-iterator input is single-host only; use "
+                "geo.geo_extract_from_shards for the mesh streaming path")
         grid, state = _ingest_stream(cfg, points, grid, dev, hash_params)
         hh = hh_mod.from_candidates(state.sketch, state.cands, cfg.top_k)
         return grid, hh, float(stream_mod.space_saving_bound(state))
     pts = _points_tensor(points, dev)
+    if mesh is not None:
+        grid, res = _mesh_extract(cfg, pts, grid, mesh, data_axes, dev,
+                                  hash_params)
+        return grid, res.hh, float(res.evict_max)
     if grid is None:
         grid = quantize.fit_grid(pts, cfg.bins)
     # one sort + RLE feeds the sketch scatter and the candidate top-k
@@ -312,9 +357,10 @@ def resolve_embed_cfg(cfg: SnsConfig,
     """The embedder's config with SnsConfig's backend, block, grid and kNN
     knobs applied: SnsConfig is authoritative for them, the tsne/umap
     configs carry the algorithms' hyper-parameters."""
-    if cfg.embed_mesh is not None:
-        raise NotImplementedError("embed_mesh (mesh-parallel embed) is not "
-                                  "ported yet: ROADMAP P12")
+    if cfg.embed_mesh is not None and cfg.embedder == "tsne":
+        raise NotImplementedError("embed_mesh with the tSNE embedder "
+                                  "(mesh-parallel sparse tSNE) is not "
+                                  "ported yet: ROADMAP P12b")
     if cfg.embedder == "tsne":
         tc = tsne_cfg or tsne_mod.TsneConfig(dims=cfg.embed_dims)
         return dataclasses.replace(
@@ -339,15 +385,18 @@ def embed_points(cfg: SnsConfig, x: torch.Tensor, weights: torch.Tensor,
     """Run the configured embedder on built representatives.  Returns
     (embedding, kl_trace): tSNE's per-iteration KL on the device, or
     None for UMAP.  ``negatives`` is UMAP's only; ``ann_draws`` goes to
-    an approximate kNN build."""
+    an approximate kNN build.  ``cfg.embed_mesh`` row-block-shards UMAP
+    over the ranks of its mesh (every rank calls this with the same
+    representatives and gets the whole embedding)."""
+    embed_mesh = mesh_mod.resolve_mesh(cfg.embed_mesh)
     if ecfg is None:
         ecfg = resolve_embed_cfg(cfg, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg)
     if cfg.embedder == "tsne":
         return tsne_mod.run_tsne(x, ecfg, weights=weights, init=init,
                                  generator=generator, ann_draws=ann_draws)
-    emb = umap_mod.run_umap(x, ecfg, weights=weights, init=init,
-                            generator=generator, negatives=negatives,
-                            ann_draws=ann_draws)
+    emb = umap_mod.run_umap(x, ecfg, weights=weights, mesh=embed_mesh,
+                            init=init, generator=generator,
+                            negatives=negatives, ann_draws=ann_draws)
     return emb, None
 
 
@@ -394,13 +443,24 @@ def _embed_stage_impl(cfg: SnsConfig, grid: GridSpec, hh: HeavyHitters,
 
 
 def run(cfg: SnsConfig, points, grid: Optional[GridSpec] = None, mesh=None,
-        tsne_cfg=None, umap_cfg=None, *, device=None,
+        data_axes=("data",), tsne_cfg=None, umap_cfg=None, *, device=None,
         draws: Optional[Draws] = None) -> SnsResult:
     """Full SnS: points → embedding of weighted heavy-hitter
     representatives, on ``device`` (None = the card).  A chunk iterator
-    or factory instead of an array goes to :func:`run_streaming`."""
-    _no_mesh(mesh)
+    or factory instead of an array goes to :func:`run_streaming`.
+
+    With ``mesh`` (a ``DeviceMesh``) every rank calls this with its own
+    row block of the global array (the block ``linear_index(mesh,
+    data_axes)``), sharded over ``data_axes``, innermost first.  The
+    grid, when none is given, comes from the shards' all-reduced min/max;
+    the sketch stage is ``geo.geo_extract``; every rank then holds the
+    same heavy hitters and embeds them (``cfg.embed_mesh`` shards that
+    too).  ``coverage`` is over the all-reduced point count."""
     if not _is_points_array(points):
+        if mesh is not None:
+            raise ValueError(
+                "chunk-iterator input is single-host only; use "
+                "run_streaming(mesh=..., shard_fn=...) for the mesh path")
         return run_streaming(cfg, points, grid=grid, tsne_cfg=tsne_cfg,
                              umap_cfg=umap_cfg, device=device, draws=draws)
     dev = resolve_device(device)
@@ -409,14 +469,21 @@ def run(cfg: SnsConfig, points, grid: Optional[GridSpec] = None, mesh=None,
     times: Dict[str, float] = {}
     t0 = time.perf_counter()
     pts = _points_tensor(points, dev)
-    grid, hh, bound = _sketch_stage_impl(cfg, pts, grid, device=dev,
-                                         hash_params=draws.hash_params)
+    if mesh is None:
+        grid, hh, bound = _sketch_stage_impl(cfg, pts, grid, device=dev,
+                                             hash_params=draws.hash_params)
+        total = float(pts.shape[0])
+    else:
+        grid, res = _mesh_extract(cfg, pts, grid, mesh, data_axes, dev,
+                                  draws.hash_params)
+        hh, bound, total = res.hh, float(res.evict_max), \
+            float(res.total_count)
     _sync(dev)
     times["sketch"] = time.perf_counter() - t0
     reps, emb, w, ids, kl = _embed_stage_impl(
         cfg, grid, hh, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg, device=dev,
         draws=draws, stage_seconds=times)
-    coverage = float(hh.count.sum() / max(pts.shape[0], 1))
+    coverage = float(hh.count.sum() / max(total, 1.0))   # a float32 ratio
     return SnsResult(grid=grid, hh=hh, reps=reps, embedding=emb,
                      rep_weight=w, rep_hh_id=ids, coverage=coverage,
                      hh_error_bound=bound, stage_seconds=times,
@@ -424,36 +491,56 @@ def run(cfg: SnsConfig, points, grid: Optional[GridSpec] = None, mesh=None,
 
 
 def run_streaming(cfg: SnsConfig, chunks=None,
-                  grid: Optional[GridSpec] = None, mesh=None, shard_fn=None,
+                  grid: Optional[GridSpec] = None, mesh=None,
+                  data_axes=("data",), shard_fn=None, num_batches: int = 1,
                   tsne_cfg=None, umap_cfg=None, *, device=None,
                   draws: Optional[Draws] = None) -> SnsResult:
     """Full SnS over a stream: no stage holds all N points.
 
-    ``chunks`` is an iterable of (n_i, D) host arrays or a callable
-    factory (re-iterable; needed when ``grid`` is None for the min/max
-    pass).  ``coverage`` is the heavy hitters' mass over the fold's
-    running count.  ``stage_seconds`` holds "grid" (the min/max pass,
-    when it runs), "ingest", "extract" (heavy hitters from the fold),
-    "replicas" and "embed".  ``mesh=``/``shard_fn=`` (the mesh streaming
-    path) raise: ROADMAP P12."""
-    if mesh is not None or shard_fn is not None:
-        raise NotImplementedError("mesh streaming (mesh=, shard_fn=) is not "
-                                  "ported yet: ROADMAP P12")
-    if chunks is None:
-        raise ValueError("single-host streaming needs a chunk source")
+    Single host: ``chunks`` is an iterable of (n_i, D) host arrays or a
+    callable factory (re-iterable; needed when ``grid`` is None for the
+    min/max pass).  Mesh: every rank passes ``mesh``, ``shard_fn(
+    rank_index, batch) -> (points, mask)`` and ``num_batches`` (see
+    ``geo.geo_extract_from_shards``); ``grid`` is then required, since
+    geo-distributed sites agree on the hypercube without a global data
+    pass.  ``coverage`` is the heavy hitters' mass over the fold's
+    running count (all-reduced on a mesh).  ``stage_seconds`` holds
+    "grid" (the min/max pass, when it runs), "ingest", "extract" (heavy
+    hitters from the fold; on a mesh, ingest and extract are one stage,
+    "ingest"), "replicas" and "embed"."""
     dev = resolve_device(device)
     resolve_embed_cfg(cfg, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg)  # fail early
     draws = draws or Draws()
     times: Dict[str, float] = {}
-    grid, state = _ingest_stream(cfg, chunks, grid, dev, draws.hash_params,
-                                 times)
-    t0 = time.perf_counter()
-    hh = hh_mod.from_candidates(state.sketch, state.cands, cfg.top_k)
-    total = float(state.count)
-    bound = float(stream_mod.space_saving_bound(state))
-    del state
-    _sync(dev)
-    times["extract"] = time.perf_counter() - t0
+    if mesh is not None:
+        if shard_fn is None:
+            raise ValueError("mesh streaming needs shard_fn + num_batches")
+        if grid is None:
+            raise ValueError(
+                "mesh streaming needs an agreed grid up front (the paper's "
+                "shared-hypercube contract); supply grid=")
+        t0 = time.perf_counter()
+        res = geo.geo_extract_from_shards(
+            mesh, grid, shard_fn, rows=cfg.rows, log2_cols=cfg.log2_cols,
+            top_k=cfg.top_k, candidate_pool=cfg.candidate_pool,
+            data_axes=data_axes, seed=cfg.seed, num_batches=num_batches,
+            hash_params=draws.hash_params, device=dev)
+        hh, total = res.hh, float(res.total_count)
+        bound = float(res.evict_max)     # the shards' MAX watermark
+        _sync(dev)
+        times["ingest"] = time.perf_counter() - t0
+    else:
+        if chunks is None:
+            raise ValueError("single-host streaming needs a chunk source")
+        grid, state = _ingest_stream(cfg, chunks, grid, dev,
+                                     draws.hash_params, times)
+        t0 = time.perf_counter()
+        hh = hh_mod.from_candidates(state.sketch, state.cands, cfg.top_k)
+        total = float(state.count)
+        bound = float(stream_mod.space_saving_bound(state))
+        del state
+        _sync(dev)
+        times["extract"] = time.perf_counter() - t0
     reps, emb, w, ids, kl = _embed_stage_impl(
         cfg, grid, hh, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg, device=dev,
         draws=draws, stage_seconds=times)

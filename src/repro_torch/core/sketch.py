@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import hashing, u64
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.core.candidates import (INVALID_KEY, KeyRuns, sorted_runs,
                                          topk_desc)
 from repro_torch.kernels.sketch_estimate import sketch_estimate
@@ -94,6 +95,15 @@ def merge(a: CountSketch, b: CountSketch) -> CountSketch:
     is the caller's contract, as in the paper ("the hashing functions and
     the sketch matrix sizes must be the same")."""
     return a._replace(table=a.table + b.table)
+
+
+def psum_merge(sk: CountSketch, mesh, axes) -> CountSketch:
+    """Distributed merge over the ranks of mesh dimension(s) ``axes``: an
+    all-reduce SUM of the (R, C) float32 table, innermost dimension
+    first (the reference's hierarchical ``psum``).  Integer counts below
+    2**24 add to the same bits in any order, so the merged table equals
+    the sketch of the concatenated shards bit for bit."""
+    return sk._replace(table=mesh_mod.all_reduce(sk.table, mesh, axes))
 
 
 def l2_estimate(sk: CountSketch) -> torch.Tensor:

@@ -38,7 +38,7 @@ The sparse backend's kNN graph is exact or approximate
 with the distance-tile kernel K4).
 
 Not ported: the mesh-parallel sparse backend (``run_tsne(mesh=...)``,
-``_fft_repulsion_shard``, ``sparse_grad_shard``: ROADMAP P12); it raises
+``_fft_repulsion_shard``, ``sparse_grad_shard``: ROADMAP P12b); it raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -503,7 +503,7 @@ def run_tsne(x: torch.Tensor, cfg: TsneConfig,
     init = validate_init(init, x.shape[0], cfg.dims)
     if mesh is not None:
         raise NotImplementedError("mesh-parallel tSNE is not ported yet: "
-                                  "ROADMAP P12")
+                                  "ROADMAP P12b")
     n = x.shape[0]
     if init is not None:
         y0 = init.to(x.device)

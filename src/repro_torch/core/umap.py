@@ -19,6 +19,17 @@ Random draws come from a ``torch.Generator`` (uniform init, then one
 (E, neg_rate) batch of negatives per epoch); ``init=`` and
 ``negatives=`` take them from outside instead, which is how the tests
 carry the reference's draws across.
+
+Mesh-parallel path (``run_umap(mesh=...)``: ``None`` | rank count | 1-D
+``DeviceMesh``, see ``core.mesh``): every rank runs the loop over its
+own row block of y and the matching contiguous slice of the src-sorted
+edge list (``coo.ShardedEdgeLayout``).  Each epoch is one all-gather of
+the blocks and one all-reduce of the (n_padded, dims) dst-side partial,
+nothing else; K1 runs twice a rank (the local src side, the global dst
+side).  Every rank draws the full (E, neg_rate) negatives from the same
+seeded generator (or takes the fed ``negatives[i]``) and gathers its
+slots by ``edge_ids``, so the run is draw for draw the single-device
+one.
 """
 from __future__ import annotations
 
@@ -29,7 +40,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import coo, neighbors
+from repro_torch.core import coo
+from repro_torch.core import mesh as mesh_mod
+from repro_torch.core import neighbors
 from repro_torch.core.tsne import validate_init
 
 
@@ -111,15 +124,11 @@ def fuzzy_simplicial_set(knn_idx: torch.Tensor, knn_dist: torch.Tensor,
     return edges, vals + rev - vals * rev
 
 
-def epoch_delta(y: torch.Tensor, layout: coo.EdgeLayout, memb_n: torch.Tensor,
-                neg: torch.Tensor, a: float, b: float) -> torch.Tensor:
-    """One epoch's per-point SGD delta.
-
-    ``neg`` is the epoch's (E, neg_rate) int64 negative samples.
-    Attraction and repulsion are computed per edge, then reduced into
-    per-point deltas by two segment reductions: the src side carries
-    attraction + negative samples, the dst side the attraction reaction."""
-    src, dst = layout.src, layout.dst
+def _edge_forces(y: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                 memb_n: torch.Tensor, neg: torch.Tensor, a: float, b: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-edge (attraction, attraction + the summed repulsion of the
+    edge's ``neg`` samples), each (E, dims), from the positions ``y``."""
     ys, yd = y[src], y[dst]
     diff = ys - yd
     d2 = (diff * diff).sum(1)
@@ -136,42 +145,113 @@ def epoch_delta(y: torch.Tensor, layout: coo.EdgeLayout, memb_n: torch.Tensor,
     rep = (rep_coef[..., None] * ndiff).clamp(-4.0, 4.0) \
         * memb_n[:, None, None]
     rep = torch.where(valid[..., None], rep, 0.0)
-    return coo.segment_reduce(att + rep.sum(1), layout.src_bounds) \
+    return att, att + rep.sum(1)
+
+
+def epoch_delta(y: torch.Tensor, layout: coo.EdgeLayout, memb_n: torch.Tensor,
+                neg: torch.Tensor, a: float, b: float) -> torch.Tensor:
+    """One epoch's per-point SGD delta.
+
+    ``neg`` is the epoch's (E, neg_rate) int64 negative samples.
+    Attraction and repulsion are computed per edge, then reduced into
+    per-point deltas by two segment reductions: the src side carries
+    attraction + negative samples, the dst side the attraction reaction."""
+    att, src_side = _edge_forces(y, layout.src, layout.dst, memb_n, neg, a, b)
+    return coo.segment_reduce(src_side, layout.src_bounds) \
         - coo.segment_reduce(att[layout.dst_order].contiguous(),
                              layout.dst_bounds)
 
 
-def optimize_embedding(edges: torch.Tensor, memb: torch.Tensor, n: int,
-                       cfg: UmapConfig, init: Optional[torch.Tensor] = None,
-                       *, generator: Optional[torch.Generator] = None,
-                       negatives: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
-    """Epoch-batched SGD on the UMAP cross-entropy.
+def epoch_delta_shard(y_full: torch.Tensor, lay: coo.EdgeBlock,
+                      memb_n: torch.Tensor, neg: torch.Tensor, a: float,
+                      b: float, mesh, axis: str) -> torch.Tensor:
+    """One epoch's delta for THIS rank's row block: :func:`epoch_delta`
+    on the rank's edge slice.
 
-    ``init`` (N, dims) replaces the uniform cold start; ``negatives``
-    (n_epochs, E, neg_rate) replaces the per-epoch draws.  Whatever is
-    not given comes from ``generator``."""
-    dev = memb.device
-    a, b = fit_ab(cfg.spread, cfg.min_dist)
+    ``y_full`` is the all-gathered (n_padded, dims) positions, ``lay``
+    the rank's :class:`coo.EdgeBlock`, ``memb_n`` its (Ep,) memberships
+    (zero on padded slots), ``neg`` its (Ep, neg_rate) negatives (the
+    full draw gathered by ``lay.edge_ids``).  The src side reduces over
+    local rows; the dst side (the attraction reaction) reduces into a
+    full-length partial that crosses ranks as ONE all-reduce.  Returns
+    (rows_per, dims)."""
+    att, src_side = _edge_forces(y_full, lay.src, lay.dst, memb_n, neg, a, b)
+    src_red = coo.segment_reduce(src_side, lay.src_bounds)
+    dst_part = coo.segment_reduce(att[lay.dst_order].contiguous(),
+                                  lay.dst_bounds)       # (n_padded, dims)
+    dst_tot = mesh_mod.all_reduce(dst_part, mesh, axis)  # THE dst exchange
+    rows_per = lay.src_bounds.shape[0] - 1
+    return src_red - dst_tot[lay.row_offset:lay.row_offset + rows_per]
+
+
+def _alpha(cfg: UmapConfig, i: int) -> float:
+    """The reference's float32 schedule: lr · (1 − f32(i) / f32(n_epochs))."""
+    return float(np.float32(cfg.learning_rate) * (
+        np.float32(1.0) - np.float32(i) / np.float32(cfg.n_epochs)))
+
+
+def _init_and_negatives(n: int, e: int, cfg: UmapConfig, dev,
+                        init: Optional[torch.Tensor],
+                        generator: Optional[torch.Generator],
+                        negatives: Optional[torch.Tensor]):
+    """(y0, negatives of epoch i as a function): the given ones, else
+    drawn from ``generator`` in the order of the single-device loop
+    (init first, then one (E, neg_rate) batch an epoch)."""
     if init is None:
         y = cfg.init_scale * torch.rand((n, cfg.dims), generator=generator,
                                         device=dev) - cfg.init_scale / 2.0
     else:
         y = init.to(dev)
+
+    def neg(i):
+        if negatives is None:
+            return torch.randint(0, n, (e, cfg.neg_rate),
+                                 generator=generator, device=dev)
+        return negatives[i].to(dev)
+    return y, neg
+
+
+def optimize_embedding(edges: torch.Tensor, memb: torch.Tensor, n: int,
+                       cfg: UmapConfig, init: Optional[torch.Tensor] = None,
+                       *, generator: Optional[torch.Generator] = None,
+                       negatives: Optional[torch.Tensor] = None,
+                       mesh=None) -> torch.Tensor:
+    """Epoch-batched SGD on the UMAP cross-entropy.
+
+    ``init`` (N, dims) replaces the uniform cold start; ``negatives``
+    (n_epochs, E, neg_rate) replaces the per-epoch draws.  Whatever is
+    not given comes from ``generator``.  With ``mesh`` the loop runs
+    row-block-sharded over the ranks of its first dimension (see the
+    module docstring); every rank returns the whole (N, dims)."""
+    mesh = mesh_mod.resolve_mesh(mesh)
+    dev = memb.device
+    a, b = fit_ab(cfg.spread, cfg.min_dist)
     layout, order = coo.edge_layout(edges[:, 0], edges[:, 1], n)
     memb_n = (memb / memb.max().clamp(min=1e-12))[order]
     e = layout.src.shape[0]
+    y, neg = _init_and_negatives(n, e, cfg, dev, init, generator, negatives)
+    if mesh is None:
+        for i in range(cfg.n_epochs):
+            y = y + _alpha(cfg, i) * epoch_delta(y, layout, memb_n, neg(i),
+                                                 a, b)
+        return y
+    axis = mesh_mod.mesh_axis(mesh)
+    s = mesh.get_local_rank(axis)
+    slay = coo.shard_edge_layout(layout.src.cpu().numpy(),
+                                 layout.dst.cpu().numpy(), n,
+                                 mesh_mod.axis_size(mesh, axis))
+    lay = slay.block(s, dev)
+    memb_b = coo.shard_payload(lay, memb_n)
+    rows_per = slay.rows_per_shard
+    y = torch.cat([y, y.new_zeros((slay.n_padded - n, y.shape[1]))])
+    y_blk = y[lay.row_offset:lay.row_offset + rows_per].clone()
+    del y
     for i in range(cfg.n_epochs):
-        if negatives is None:
-            neg = torch.randint(0, n, (e, cfg.neg_rate), generator=generator,
-                                device=dev)
-        else:
-            neg = negatives[i].to(dev)
-        # the reference's float32 schedule: lr * (1 - f32(i) / f32(n_epochs))
-        alpha = float(np.float32(cfg.learning_rate) * (
-            np.float32(1.0) - np.float32(i) / np.float32(cfg.n_epochs)))
-        y = y + alpha * epoch_delta(y, layout, memb_n, neg, a, b)
-    return y
+        neg_b = neg(i)[lay.edge_ids]
+        y_full = mesh_mod.all_gather(y_blk, mesh, axis)
+        y_blk = y_blk + _alpha(cfg, i) * epoch_delta_shard(
+            y_full, lay, memb_b, neg_b, a, b, mesh, axis)
+    return mesh_mod.all_gather(y_blk, mesh, axis)[:n]
 
 
 def run_umap(x: torch.Tensor, cfg: UmapConfig,
@@ -184,15 +264,17 @@ def run_umap(x: torch.Tensor, cfg: UmapConfig,
 
     ``init`` seeds the SGD at given (N, dims) coordinates instead of the
     uniform cold start (validated for shape and dtype); ``ann_draws``
-    goes to an approximate kNN build."""
-    if mesh is not None:
-        raise NotImplementedError("mesh-parallel UMAP is not ported yet: "
-                                  "ROADMAP P12")
+    goes to an approximate kNN build.  ``mesh`` row-block-shards the
+    exact kNN build and the SGD loop over the ranks (every rank passes
+    the same ``x`` and gets the whole embedding); the fuzzy set is built
+    whole on every rank."""
+    mesh = mesh_mod.resolve_mesh(mesh)
     init = validate_init(init, x.shape[0], cfg.dims)
     idx, dist = neighbors.knn_graph(x, cfg.n_neighbors, block=cfg.block,
-                                    method=cfg.knn_method, ann=cfg.ann,
-                                    ann_draws=ann_draws)
+                                    mesh=mesh, method=cfg.knn_method,
+                                    ann=cfg.ann, ann_draws=ann_draws)
     edges, memb = fuzzy_simplicial_set(idx, dist, weights=weights,
                                        search_iters=cfg.sigma_search_iters)
     return optimize_embedding(edges, memb, x.shape[0], cfg, init=init,
-                              generator=generator, negatives=negatives)
+                              generator=generator, negatives=negatives,
+                              mesh=mesh)

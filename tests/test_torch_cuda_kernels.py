@@ -52,8 +52,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (ann, candidates, coo, hashing, quantize, sketch,
-                              tsne)
+from repro_torch.core import (ann, candidates, coo, hashing, prng, quantize,
+                              sketch, tsne)
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import cic
 from repro_torch.kernels import hash_points as hp_mod
@@ -629,7 +629,7 @@ def test_knn_tile_wrapper_rejects_bad_inputs(card):
 
 
 def _params(rows, seed):
-    return hashing.make_params(torch.Generator().manual_seed(seed), rows)
+    return hashing.make_params(prng.key(seed), rows)
 
 
 def _hash_case(n, d, bins, seed):

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import geo, hashing, quantize, resilience, stream
+from repro_torch.core import geo, hashing, prng, quantize, resilience, stream
 from repro_torch.kernels import LAUNCHES
 
 
@@ -31,8 +31,7 @@ def test_threaded_shard_jobs_merge_to_one_fold(card, superbatch):
     shards = {s: rng.normal(s % 2, 0.2, size=(150_000 + 777 * s, 4)
                             ).astype(np.float32) for s in range(4)}
     grid = quantize.GridSpec(dims=4, bins=16, lo=(-1.5,) * 4, hi=(2.5,) * 4)
-    params = hashing.make_params(
-        torch.Generator(device=card).manual_seed(3), 8)
+    params = hashing.make_params(prng.key(3, device=card), 8)
     chunk, pool = 16_384, 4096
     sources = {s: (lambda p=p: iter([p[:70_001], p[70_001:]]))
                for s, p in shards.items()}

@@ -11,7 +11,7 @@ from repro.core import hashing as ref_hashing
 from repro.core import quantize as ref_quantize
 from repro.core import u64 as ref_u64
 from repro_torch import carry
-from repro_torch.core import hashing, quantize, u64
+from repro_torch.core import hashing, prng, quantize, u64
 
 U32 = np.iinfo(np.uint32).max
 
@@ -71,12 +71,17 @@ def test_bucket_and_sign_hash_bit_identical(log2):
 
 
 def test_make_params_draws_uint32_range():
-    g = torch.Generator().manual_seed(3)
-    p = hashing.make_params(g, 16)
+    """The draw is the reference's: ``make_params(key(s), R)`` equals
+    ``ref make_params(jax.random.key(s), R)`` bit for bit, each limb an
+    int64 tensor holding uint32."""
+    p = hashing.make_params(prng.key(3), 16)
     assert p.rows == 16
     for f in p:
         assert f.dtype == torch.int64 and f.shape == (16,)
         assert int(f.min()) >= 0 and int(f.max()) <= U32
+    ref = ref_hashing.make_params(jax.random.key(3), 16)
+    for a, b in zip(p, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b, np.int64))
 
 
 @pytest.mark.parametrize("dims,bins", [(4, 8), (8, 25), (3, 2), (16, 16)])

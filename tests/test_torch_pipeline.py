@@ -119,9 +119,12 @@ def test_config_has_the_reference_fields_less_kernel_mode():
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
-    """Meshes (P12) raise; chunk-iterator input (P11, streaming ingest)
-    runs through run and sketch_stage to the one-shot's heavy hitters;
-    the approximate kNN (P9) runs under both embedders."""
+    """The tSNE embed mesh (P12b) raises; the ported mesh paths (P12)
+    refuse what the reference refuses (a chunk iterator with a mesh, mesh
+    streaming without shard_fn or grid) and what is no mesh, without a
+    process group; chunk-iterator input (P11, streaming ingest) runs
+    through run and sketch_stage to the one-shot's heavy hitters; the
+    approximate kNN (P9) runs under both embedders."""
     pts, _ = gaussian_mixture(500, MixtureSpec(dims=3), seed=1)
     # a pool of all 4**3 cells: the streaming reservoir stays exact
     cfg = pipeline.SnsConfig(bins=4, rows=2, log2_cols=6, top_k=8,
@@ -130,16 +133,19 @@ def test_unported_paths_raise_with_their_roadmap_item():
     small = dict(umap_cfg=umap.UmapConfig(n_neighbors=3, n_epochs=1))
     cases = [
         (dataclasses.replace(cfg, embedder="tsne", embed_mesh=2), pts, {},
-         "P12"),
-        (dataclasses.replace(cfg, embed_mesh=2), pts, {}, "P12"),
-        (cfg, pts, {"mesh": 2}, "P12"),
-        (cfg, [pts], {"mesh": 2}, "P12"),
+         NotImplementedError, "P12b"),
+        (dataclasses.replace(cfg, embed_mesh=2), pts, small, ValueError,
+         "torch.distributed initialized"),
+        (cfg, pts, {"mesh": 2}, TypeError, "DeviceMesh"),
+        (cfg, [pts], {"mesh": 2}, ValueError, "single-host only"),
     ]
-    for c, p, kw, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
+    for c, p, kw, exc, msg in cases:
+        with pytest.raises(exc, match=msg):
             pipeline.run(c, p, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="P12"):
-        pipeline.run_streaming(cfg, [pts], shard_fn=lambda i, b: b,
+    with pytest.raises(ValueError, match="needs shard_fn"):
+        pipeline.run_streaming(cfg, mesh=2, device="cpu")
+    with pytest.raises(ValueError, match="agreed grid"):
+        pipeline.run_streaming(cfg, mesh=2, shard_fn=lambda i, b: b,
                                device="cpu")
     grid, hh = pipeline.sketch_stage(cfg, pts, device="cpu")
     for source in ([pts[:300], pts[300:]],

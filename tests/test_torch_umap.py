@@ -35,7 +35,8 @@ def test_knn_graph_matches_reference(block):
 
 
 def test_knn_graph_unported_paths_raise():
-    """The mesh build (P12) and unknown methods raise; "ann" (P9, once
+    """The approximate mesh build (P12b) and unknown methods raise, and
+    so does an exact mesh build without a process group; "ann" (P9, once
     raising here too) returns the graph."""
     x = torch.zeros((10, 2))
     idx, dist = neighbors.knn_graph(x + torch.arange(10.)[:, None], 3,
@@ -43,7 +44,9 @@ def test_knn_graph_unported_paths_raise():
     assert idx.shape == dist.shape == (10, 3)
     assert torch.equal(idx, neighbors.knn_graph(
         x + torch.arange(10.)[:, None], 3)[0])
-    with pytest.raises(NotImplementedError, match="P12"):
+    with pytest.raises(NotImplementedError, match="P12b"):
+        neighbors.knn_graph(x, 3, method="ann", mesh=4)
+    with pytest.raises(ValueError, match="torch.distributed initialized"):
         neighbors.knn_graph(x, 3, mesh=4)
     with pytest.raises(ValueError, match="unknown kNN method"):
         neighbors.knn_graph(x, 3, method="hnsw")
