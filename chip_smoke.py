@@ -57,7 +57,9 @@ Phases, each failing the run (non-zero exit) if it fails:
                  its shapes and a profile; then the reproducibility gate:
                  the optimizer on its P from one init, 100 iterations, G
                  checked every 40, run twice, must give equal bits and
-                 the same G choices;
+                 the same G choices; prints the digests of the run's
+                 sketch table, reps and ANN graph, which path M (d)
+                 holds its own to;
 8. stream      — path I: ``pipeline.run_streaming(CANCER, factory,
                  grid=None)`` over the same 26M points as host numpy
                  slices of 1 000 003: stage seconds (grid pass, ingest,
@@ -118,9 +120,30 @@ Phases, each failing the run (non-zero exit) if it fails:
                  1e-4·scale of the single-device run from the same
                  generator, then ``embed_stage(embed_mesh=)``'s 300
                  epochs finite and separated with K1 = 600 a rank (one
-                 rank: bit-identical to (a)'s embedding); prints each
-                 step's seconds and the collectives' ms an epoch (on
-                 card tensors, and on a gloo layout on host tensors).
+                 rank: bit-identical to (a)'s embedding); (d)
+                 ``pipeline.run(CANCER_1M, shard, mesh=)`` with
+                 ``embed_mesh`` the same 1-D mesh: the sketch over the
+                 ranks, then the ANN graph (k 90) and the sparse tSNE
+                 (adaptive G up to 1024, path A's rate N/12) sharded over
+                 them, 500 iterations; the table equals path A's, the
+                 reps are the same on every rank (path A's on one rank),
+                 the ANN graph equals a single-device build on the same
+                 reps bit for bit (path A's on path A's reps), the
+                 sharded gradient at the init and at the final map
+                 within 1e-4·max|grad| of ``sparse_grad`` (padded rows
+                 0; rank 0's K1, K2 and K3 inputs of the final map's
+                 call held against their plain versions as path S's
+                 are), the KL trace finite,
+                 falling and the same on every rank, rank 0's 10-NN
+                 purity ≥ 0.95 (path A's bar) and within 0.02 of one
+                 device's map from the same reps, P and init,
+                 K7 = K8 = 1, K4 = probes × ⌈⌈T/S⌉/1024⌉,
+                 K1 = K2 = K3 = the iterations a rank; prints each
+                 step's seconds (d split into sketch, ANN stage 1,
+                 descent rounds, P build, iterations), the collectives'
+                 ms an epoch (on card tensors, and on a gloo layout on
+                 host tensors) and an iteration, and each rank's peak
+                 device memory.
                  Launches count under ``M:<layout>:<step>:r<rank>``; a
                  rank that fails, times out or disagrees fails the run;
 13. parity     — the sketch stage at 2^20 points on the card, bit-identical
@@ -138,6 +161,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -175,6 +199,7 @@ MESH_AXES = ("data", "pod")         # sharded over, innermost first
 MESH_CHUNK = 65_536                 # path M (b): rows a streamed batch
 MESH_TIMEOUT_S = 600                # path M: a layout's ranks, at most
 MESH_COLLECTIVE_ROUNDS = 50         # path M: epochs of collectives timed
+MESH_TSNE_ROUNDS = 20               # path M (d): iterations' collectives timed
 # the sketch stage of every one-shot path: one scatter, one estimate
 ONE_SHOT_SKETCH = {"sketch_update_table": 1, "sketch_estimate_table": 1}
 # each driven path's launches, by tag (K7 and K8 run on all of them)
@@ -1366,27 +1391,45 @@ def phase_tsne_exact(device, pts, warm, spec):
     return entry("tsne_z", k5a, 58), entry("tsne_forces", k5b, 69)
 
 
+def path_a_tsne_cfg(cfg):
+    """Path A's tSNE config for ``cfg`` (CANCER_1M).  The rate scales with
+    the reps: N/12, N/α for exaggeration α = 12 (Belkina et al. 2019,
+    Nat. Commun. 10:5415; openTSNE's default).  At the default 200 the
+    10⁶-point map has not spread out after 500 iterations and its blobs
+    mix, on the exact kNN graph as on the ANN one
+    (chip_diag_cancer_1m.py).  At N/12 the ten 10⁵-point blobs come out
+    wide and touching: the spread ratio and the centroid accuracy
+    straddle the UMAP (1.5×) and sparse-tSNE (0.95) bars from map to
+    map, so the map is held to its neighbourhoods: ≥ 0.95 of each rep's
+    map neighbours from its own blob."""
+    from repro_torch.core import tsne
+    return tsne.TsneConfig(learning_rate=cfg.top_k * cfg.max_replicas / 12)
+
+
+def ann_launches(acfg, n, k, ranks=1):
+    """K4's launches in one ANN build of ``n`` points on ``ranks`` ranks:
+    a rank scores ⌈T/S⌉ of the T sorted tiles, ``_TILE_CHUNK`` a launch,
+    once a probe."""
+    from repro_torch.core import ann
+    tiles = -(-n // ann._bucket_size(acfg, k))
+    per_rank = -(-tiles // ranks)
+    return acfg.probes * -(-per_rank // ann._TILE_CHUNK)
+
+
 def phase_ann(device, pts, warm, spec):
     """Path A: CANCER_1M (sparse tSNE on the approximate kNN graph,
     adaptive grid) on the main points; then the ANN build's split, its
     recall on a row sample, K4, K2 and K3 at its shapes, and the
-    reproducibility gate.  Returns K4's entry and K2's and K3's rows."""
+    reproducibility gate.  Returns K4's entry, K2's and K3's rows, and
+    the digests of the run's sketch table, its reps and their ANN graph
+    (path M (d) must give the same)."""
     import torch
     from repro_torch.configs.sns_paper import CANCER_1M
     from repro_torch.core import ann, neighbors, pipeline, tsne
     from repro_torch.kernels import knn_tile
 
     cfg = CANCER_1M
-    # The rate scales with the reps: N/12, N/α for exaggeration α = 12
-    # (Belkina et al. 2019, Nat. Commun. 10:5415; openTSNE's default).
-    # At the default 200 the 10⁶-point map has not spread out after 500
-    # iterations and its blobs mix, on the exact kNN graph as on the ANN
-    # one (chip_diag_cancer_1m.py).  At N/12 the ten 10⁵-point blobs come
-    # out wide and touching: the spread ratio and the centroid accuracy
-    # straddle the UMAP (1.5×) and sparse-tSNE (0.95) bars from map to
-    # map, so the map is held to its neighbourhoods: ≥ 0.95 of each rep's
-    # map neighbours from its own blob
-    tcfg = tsne.TsneConfig(learning_rate=cfg.top_k * cfg.max_replicas / 12)
+    tcfg = path_a_tsne_cfg(cfg)
     ecfg = pipeline.resolve_embed_cfg(cfg, tsne_cfg=tcfg)
     acfg = ecfg.ann or ann.AnnConfig()
     n_iter = ecfg.n_iter
@@ -1396,8 +1439,7 @@ def phase_ann(device, pts, warm, spec):
 
     def expect(res):
         n = res.embedding.shape[0]
-        tiles = -(-n // ann._bucket_size(acfg, knn_k(n)))
-        return {"knn_dist_tiles": acfg.probes * -(-tiles // ann._TILE_CHUNK),
+        return {"knn_dist_tiles": ann_launches(acfg, n, knn_k(n)),
                 "segment_reduce": n_iter, "cic_splat": n_iter,
                 "cic_gather": n_iter, **ONE_SHOT_SKETCH}
     # record the adaptive grid's choices: the last is the final G
@@ -1415,10 +1457,19 @@ def phase_ann(device, pts, warm, spec):
     idx, dist = ann.ann_knn_graph(x, k, acfg, stats=st)
     torch.cuda.synchronize()
     t_ann = time.perf_counter() - t0
+    ref = {"table": digest(one_shot_table(
+        cfg, res.grid, pts, pipeline._hash_params(cfg, device, None))),
+        "reps": digest(*res.reps), "ann_idx": digest(idx),
+        "ann_dist": digest(dist), "n": n}
+    log(f"[ann] digests (path M (d) must give the same): sketch table "
+        f"{ref['table']}, reps {ref['reps']}, ANN graph indices "
+        f"{ref['ann_idx']}, distances {ref['ann_dist']}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     sp = tsne.sparse_p_from_knn(idx, dist, ecfg.perplexity, weights=w,
                                 search_iters=ecfg.sigma_search_iters)
     torch.cuda.synchronize()
-    t_p = time.perf_counter() - t0 - t_ann
+    t_p = time.perf_counter() - t0
     e, e_nz = sp.src.shape[0], int((sp.val > 0).sum())
     log(f"[ann] embed breakdown (s): ANN kNN (k {k}, {n} reps) {t_ann:.3f} "
         f"= stage 1 {st['stage1_s']:.3f} + NN-descent {st['descent_s']:.3f} "
@@ -1482,7 +1533,7 @@ def phase_ann(device, pts, warm, spec):
                  "source": "src/repro_torch/kernels/csrc/knn_tile.cu",
                  "replaces": "src/repro/kernels/knn_tile.py:36",
                  "shapes": {"n": n, "k": k, "t": t, "b": b, "c": c, "d": d,
-                            "probes": acfg.probes}}, **k4), k2, k3
+                            "probes": acfg.probes}}, **k4), k2, k3, ref
 
 
 class GridSpy:
@@ -1977,13 +2028,13 @@ def mesh_layouts(n_cards: int):
     return layouts
 
 
-def mesh_rank(rank, world, backend, shared, tmp, queue):
+def mesh_rank(rank, world, backend, shared, tmp, d_iters, queue):
     """One rank of path M (a spawned process): puts (rank, "ok", its
     report) or (rank, "error", the traceback) on ``queue``."""
     import traceback
     try:
         queue.put((rank, "ok", _mesh_rank(rank, world, backend, shared,
-                                          Path(tmp))))
+                                          Path(tmp), d_iters)))
     except Exception:
         queue.put((rank, "error", traceback.format_exc()))
         raise
@@ -1993,12 +2044,14 @@ def mesh_rank(rank, world, backend, shared, tmp, queue):
             dist.destroy_process_group()
 
 
-def _mesh_rank(rank, world, backend, shared, tmp):
+def _mesh_rank(rank, world, backend, shared, tmp, d_iters):
     """Path M on one rank: (a) the one-shot ``pipeline.run(mesh=)`` on the
     rank's row block, (b) ``run_streaming(mesh=, shard_fn=)`` over the
     same block in chunks of MESH_CHUNK, (c) the UMAP embed over a 1-D
-    embed mesh of all ranks.  Returns launches, digests, gate values and
-    seconds; the parent holds them to the gates."""
+    embed mesh of all ranks, (d) ``run(CANCER_1M, mesh=)`` with the
+    sparse tSNE and its ANN graph on that embed mesh, ``d_iters``
+    iterations.  Returns launches, digests, gate values and seconds; the
+    parent holds them to the gates."""
     import numpy as np
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -2009,6 +2062,11 @@ def _mesh_rank(rank, world, backend, shared, tmp):
     from repro_torch.kernels import LAUNCHES
 
     dev = torch.device("cuda", 0 if shared else rank)
+    if shared:
+        # four processes' caches share one card: grow segments in place
+        # rather than strand freed blocks of one size
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
     torch.cuda.set_device(dev)
     # every rank of path M runs on this host: rendezvous over loopback
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
@@ -2082,7 +2140,7 @@ def _mesh_rank(rank, world, backend, shared, tmp):
     rep["b"] = {"table": digest(g.merged.table), "hh": digest(*res_b.hh),
                 "total": float(g.total_count), "evict": float(g.evict_max),
                 "batches": nb, "stages": res_b.stage_seconds}
-    del g, res_b, shard
+    del g, res_b
 
     # (c) UMAP on (a)'s representatives over a 1-D mesh of all ranks
     emesh = mesh_mod.make_embed_mesh()
@@ -2112,29 +2170,272 @@ def _mesh_rank(rank, world, backend, shared, tmp):
         device=dev))
     rep["c"] = {"embedding": digest(emb), "n": x.shape[0],
                 **separation(reps, emb)}
+    del res, reps, emb, x, w, u1, u2, y_blk, part
+    torch.cuda.empty_cache()
+
+    # (d) CANCER_1M: the sketch over the mesh, then the sparse tSNE and its
+    # ANN graph over the embed mesh
+    rep["d"] = _mesh_tsne_step(step, rank, world, dev, mesh, emesh, shard,
+                               d_iters, centers)
     return rep
 
 
-def phase_mesh(device, pts, pts_np, spec):
+def _mesh_tsne_step(step, rank, world, dev, mesh, emesh, shard, n_iter,
+                    centers):
+    """Path M step (d) on one rank: ``run(CANCER_1M, shard, mesh=)`` with
+    ``embed_mesh`` the 1-D mesh of all ranks (path A's tSNE config,
+    ``n_iter`` iterations), after a small warm-up; then the first
+    iteration's sharded gradient against ``sparse_grad`` on one device,
+    and an iteration's collectives at the final G.  ``step`` is
+    :func:`_mesh_rank`'s timer; rank 0 also measures the map's
+    neighbourhood purity.  Returns the rank's report of the step."""
+    import torch
+    from repro_torch.configs.sns_paper import CANCER_1M
+    from repro_torch.core import ann, pipeline, tsne
+    from repro_torch.core import mesh as mesh_mod
+    axis = mesh_mod.EMBED_AXIS
+    cfg = dataclasses.replace(CANCER_1M, embed_mesh=emesh)
+    tcfg = dataclasses.replace(path_a_tsne_cfg(CANCER_1M), n_iter=n_iter)
+    step("warm_d", lambda: pipeline.run(
+        dataclasses.replace(cfg, top_k=2000), shard[:WARMUP_POINTS // world],
+        mesh=mesh, data_axes=MESH_AXES, tsne_cfg=tsne.TsneConfig(n_iter=20),
+        device=dev))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    free_gib = torch.cuda.mem_get_info(dev)[0] / 2**30
+    with GeoSpy() as geo_spy, AnnSpy() as ann_spy, PSpy() as p_spy, \
+            GridSpy() as grids:
+        res = step("d", lambda: pipeline.run(
+            cfg, shard, mesh=mesh, data_axes=MESH_AXES, tsne_cfg=tcfg,
+            device=dev))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    peak_reserved = torch.cuda.max_memory_reserved(dev) / 2**30
+    x = res.reps.points[res.reps.mask]
+    n = x.shape[0]
+    emb, kl = res.embedding, res.kl_trace
+    idx, dist = ann_spy.graphs[-1]
+    st = ann_spy.stats
+    out = {"table": digest(geo_spy.results[-1].merged.table),
+           "evict": float(geo_spy.results[-1].evict_max),
+           "reps": digest(*res.reps), "ann_idx": digest(idx),
+           "ann_dist": digest(dist), "embedding": digest(emb),
+           "kl": digest(kl), "n": n, "shape": list(emb.shape),
+           "k": idx.shape[1], "finite": bool(torch.isfinite(emb).all()),
+           "kl_finite": bool(torch.isfinite(kl).all()),
+           "kl_first": kl[0].item(), "kl_last": kl[-1].item(),
+           "iters": kl.shape[0], "stages": res.stage_seconds,
+           "stage1_s": st["stage1_s"], "descent_s": st["descent_s"],
+           "descent_iters": st["descent_iters"],
+           "descent_changed": st["descent_changed"],
+           "p_s": p_spy.seconds[-1], "grids": list(grids),
+           "peak_gib": peak, "peak_reserved_gib": peak_reserved,
+           "free_gib": free_gib}
+    del idx, dist, ann_spy, geo_spy
+    sp = p_spy.results[-1]
+    del p_spy, res
+    ecfg = pipeline.resolve_embed_cfg(cfg, tsne_cfg=tcfg)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    y0 = 1e-4 * torch.randn((n, 2), generator=gen, device=dev)
+    if rank == 0:
+        inter, intra, n_blobs, acc = blob_separation(x, emb, centers)
+        out.update(purity=knn_purity(x, emb, centers), inter=inter,
+                   intra=intra, blobs=n_blobs, acc=acc)
+        # the same reps' graph built on one device, which the mesh build
+        # must equal bit for bit
+        si, sd = ann.ann_knn_graph(x, out["k"], CANCER_1M.embed_ann)
+        out.update(single_idx=digest(si), single_dist=digest(sd))
+        del si, sd
+        # the same optimizer on one device, from the same init on the same
+        # P: the map the sharded one is held to at any depth
+        y1, kl1 = tsne._optimize(
+            y0, lambda yy, exag, g: tsne.sparse_grad(yy, sp, exag, g), ecfg,
+            adaptive=ecfg.grid_interval > 0)
+        out.update(single_purity=knn_purity(x, y1, centers),
+                   single_kl_last=kl1[-1].item(),
+                   single_acc=blob_separation(x, y1, centers)[3])
+        del y1, kl1
+    del x
+    # the sharded gradient against one device's on the same P: at the
+    # run's own init (the first iteration: exaggerated, the first G) and
+    # at its final map (no exaggeration, the final G), where rank 0 also
+    # holds its K1, K2 and K3 inputs against their plain versions
+    blk = tsne.sparse_p_block(sp, n, world, emesh.get_local_rank(axis))
+    rows_per, n_pad = mesh_mod.row_block(n, world)
+    g = out["grids"][-1] if out["grids"] else ecfg.grid_size
+    for name, y, exag, grid, check in (
+            ("grad", y0, ecfg.early_exaggeration, ecfg.grid_size, False),
+            ("grad_last", emb, 1.0, g, rank == 0)):
+        out[name] = sharded_grad_error(sp, blk, y, exag, grid, emesh,
+                                       rows_per, n_pad, check_kernels=check)
+    del sp, blk, y0, emb
+    torch.cuda.empty_cache()
+    # one iteration's collectives at the final G, on card tensors
+    y_c = torch.zeros((rows_per, 2), device=dev)
+    grid_c = torch.zeros((3 * g * g + 2,), device=dev)
+    z_c, mean_c = torch.zeros((), device=dev), torch.zeros((2,), device=dev)
+
+    def collectives():
+        for _ in range(MESH_TSNE_ROUNDS):
+            mesh_mod.all_gather(y_c, emesh, axis)
+            mesh_mod.all_reduce(grid_c, emesh, axis)
+            mesh_mod.all_reduce(z_c, emesh, axis)
+            mesh_mod.all_reduce(mean_c, emesh, axis)
+    step("d_collectives", collectives)
+    out["g_final"] = g
+    return out
+
+
+def sharded_grad_error(sp, blk, y, exag, grid, emesh, rows_per, n_pad,
+                       check_kernels=False):
+    """``tsne.sparse_grad_shard`` on this rank's block ``blk`` of ``sp``
+    at ``y`` against ``tsne.sparse_grad`` of the whole ``sp``: the
+    largest error on the block's live rows, max|grad| (the gate's scale:
+    at 10⁶ reps the entries are far below 1), the largest padded-row
+    entry and |ΔKL|.  With ``check_kernels`` the K1, K2 and K3 inputs of
+    the sharded call (this rank's edges, rows and grid) are held against
+    the plain versions as path S's are (``check_segment_reduce``,
+    ``check_cic``), and their max abs errors come back too."""
+    import torch
+    from repro_torch.core import mesh as mesh_mod
+    from repro_torch.core import tsne
+    axis = mesh_mod.EMBED_AXIS
+    n, lo = y.shape[0], blk.row_offset
+    want, kl_w = tsne.sparse_grad(y, sp, exag, grid)
+    y_blk = torch.cat([y, y.new_zeros((n_pad - n, 2))])[lo:lo + rows_per]
+    with KernelInputSpy() as spy:
+        got, kl_g = tsne.sparse_grad_shard(
+            y_blk, blk, mesh_mod.all_gather(y_blk, emesh, axis), exag, grid,
+            emesh, axis, n)
+    live = max(0, min(rows_per, n - lo))
+    out = {"err": (got[:live] - want[lo:lo + live]).abs().max().item()
+           if live else 0.0, "gmax": want.abs().max().item(),
+           "pad": got[live:].abs().max().item() if live < rows_per else 0.0,
+           "kl": abs(kl_g.item() - kl_w.item()), "kl_single": kl_w.item(),
+           "g": grid, "exag": exag}
+    del want, got
+    if check_kernels:
+        vals, bounds = spy.args["segment_reduce"]
+        gen = torch.Generator(device=vals.device).manual_seed(4)
+        vi = torch.randint(-1000, 1000, vals.shape, generator=gen,
+                           device=vals.device).float()
+        e1 = check_segment_reduce(vi, vals, bounds)
+        edges = vals.shape[0]
+        del vi, vals
+        i0, f, masses, _ = spy.args["cic_splat"]
+        fields = spy.args["cic_gather"][0]
+        e2, e3 = check_cic(i0, f, masses, fields)
+        out["kernels"] = {"segment_reduce": e1, "cic_splat": e2,
+                          "cic_gather": e3, "edges": edges,
+                          "rows": i0.shape[0], "g": fields.shape[-1]}
+    return out
+
+
+class KernelInputSpy:
+    """Wraps the K1, K2 and K3 wrappers where ``tsne`` calls them
+    (``coo.segment_reduce``, ``cic.cic_splat``, ``cic.cic_gather``) and
+    keeps each one's arguments of its last call."""
+
+    _WRAPPED = (("coo", "segment_reduce"), ("cic", "cic_splat"),
+                ("cic", "cic_gather"))
+
+    def _modules(self):
+        from repro_torch.core import coo
+        from repro_torch.kernels import cic
+        return {"coo": coo, "cic": cic}
+
+    def __enter__(self):
+        mods = self._modules()
+        self.args, self.orig = {}, {}
+        for mod, name in self._WRAPPED:
+            fn = self.orig[name] = getattr(mods[mod], name)
+
+            def spy(*args, _name=name, _fn=fn):
+                self.args[_name] = args
+                return _fn(*args)
+            setattr(mods[mod], name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        mods = self._modules()
+        for mod, name in self._WRAPPED:
+            setattr(mods[mod], name, self.orig[name])
+
+
+class AnnSpy:
+    """Wraps ``ann.ann_knn_graph`` (``neighbors.knn_graph`` calls it
+    through the module): hands it a ``stats`` dict and keeps each call's
+    graph."""
+
+    def __enter__(self):
+        from repro_torch.core import ann
+        self.graphs, self.stats, self.orig = [], {}, ann.ann_knn_graph
+
+        def spy(*args, **kwargs):
+            kwargs["stats"] = self.stats
+            self.graphs.append(self.orig(*args, **kwargs))
+            return self.graphs[-1]
+        ann.ann_knn_graph = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import ann
+        ann.ann_knn_graph = self.orig
+
+
+class PSpy:
+    """Wraps ``tsne.sparse_p_from_knn`` (``build_sparse_p`` calls it
+    through the module): keeps each call's P and its seconds, each ending
+    in a device synchronize."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import tsne
+        self.results, self.seconds, self.orig = [], [], \
+            tsne.sparse_p_from_knn
+
+        def spy(idx, *args, **kwargs):
+            torch.cuda.synchronize(idx.device)
+            t0 = time.perf_counter()
+            self.results.append(self.orig(idx, *args, **kwargs))
+            torch.cuda.synchronize(idx.device)
+            self.seconds.append(time.perf_counter() - t0)
+            return self.results[-1]
+        tsne.sparse_p_from_knn = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import tsne
+        tsne.sparse_p_from_knn = self.orig
+
+
+def phase_mesh(device, pts, pts_np, spec, ref_a, layouts=None):
     """Path M: the mesh tier, every rank a process, on the paper's four
     sites.  Holds each layout's steps to their gates (see the module
-    docstring) and counts every rank's launches under ``M``."""
+    docstring; ``ref_a``: path A's digests, which step (d) must give) and
+    counts every rank's launches under ``M``.  ``layouts`` (default: every
+    one :func:`mesh_layouts` gives the visible cards) are run in turn."""
     import shutil
     import tempfile
     import numpy as np
     import torch
     import torch.multiprocessing as mp
-    from repro_torch.configs.sns_paper import CANCER
+    from repro_torch.configs.sns_paper import CANCER, CANCER_1M
     from repro_torch.core import pipeline, quantize
 
     smi = nvidia_smi_line()
     cfg = dataclasses.replace(CANCER, embed_knn_method="exact")
     n_epochs = pipeline.resolve_embed_cfg(cfg).n_epochs
+    tsne_iters = path_a_tsne_cfg(CANCER_1M).n_iter
     n = pts_np.shape[0]
     grid = quantize.fit_grid(pts, cfg.bins)
     table = digest(one_shot_table(cfg, grid, pts,
                                   pipeline._hash_params(cfg, device, None)))
+    gc.collect()          # earlier paths' cycles, before their blocks go
     torch.cuda.empty_cache()
+    log(f"[mesh] this process holds {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB on the card ({torch.cuda.memory_reserved() / 2**30:.2f} "
+        f"reserved); the card has {torch.cuda.mem_get_info()[0] / 2**30:.2f} "
+        f"GiB free")
     root = Path(tempfile.mkdtemp(prefix="sns-mesh-"))
     ctx = mp.get_context("spawn")
     try:
@@ -2142,27 +2443,31 @@ def phase_mesh(device, pts, pts_np, spec):
         log(f"[mesh] {n} points written once to {root} for the ranks to "
             f"map; the single-device one-shot table {table} (default hash "
             f"draw); {smi}")
-        for name, world, backend, shared in mesh_layouts(
-                torch.cuda.device_count()):
+        if layouts is None:
+            layouts = mesh_layouts(torch.cuda.device_count())
+        for name, world, backend, shared in layouts:
             tmp = root / name
             tmp.mkdir()
             t0 = time.perf_counter()
-            reps = run_ranks(ctx, world, backend, shared, tmp)
+            reps = run_ranks(ctx, world, backend, shared, tmp, tsne_iters)
             wall = time.perf_counter() - t0
             mesh_gates(name, world, reps, table, n, n_epochs, spec.n_clusters,
                        wall, smi)
+            mesh_tsne_gates(name, world, reps, ref_a, tsne_iters,
+                            spec.n_clusters, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def run_ranks(ctx, world, backend, shared, tmp):
+def run_ranks(ctx, world, backend, shared, tmp, d_iters):
     """Spawn ``world`` ranks and return their reports by rank.  A rank
     that fails or outlives MESH_TIMEOUT_S fails the run; every rank is
     stopped before this returns or raises."""
     import queue as queue_mod
     q = ctx.Queue()
     procs = [ctx.Process(target=mesh_rank,
-                         args=(r, world, backend, shared, str(tmp), q))
+                         args=(r, world, backend, shared, str(tmp), d_iters,
+                               q))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -2267,6 +2572,118 @@ def mesh_gates(name, world, reps, table, n, n_epochs, n_blobs, wall, smi):
         f"(spawn and import included); (a) {slowest['a']:.3f} s, (b) "
         f"{slowest['b']:.3f} s over {nb} batches, (c) {slowest['c']:.3f} s "
         f"(slowest rank); {smi}")
+    if fails:
+        raise AssertionError("\n".join(fails))
+
+
+def mesh_tsne_gates(name, world, reps, ref_a, n_iter, n_blobs, smi):
+    """Path M step (d)'s gates for one layout and its prints: path A's
+    table bits; the same reps on every rank, path A's on one rank (on
+    several, each site proposes its own candidate cells, so the heavy
+    hitters may differ from one device's: the reference's geo extract);
+    the ANN graph equal to a single-device build on the same reps bit
+    for bit (and to path A's wherever the reps are path A's); the
+    sharded gradient at the init and at the final map within
+    1e-4·max|grad| of one device's, padded rows 0, rank 0's K1, K2 and K3
+    inputs checked; a finite, falling KL trace, the same on every rank;
+    rank 0's map purity ≥ 0.95 (path A's bar) and within 0.02 of the map
+    one device makes from the same reps, P and init; the launches (under
+    ``M:<layout>:d:r<rank>``)."""
+    from repro_torch.core import ann
+    acfg = ann.AnnConfig()
+    first = reps[0]["d"]
+    for r in reps:
+        PATH_LAUNCHES[f"M:{name}:d:r{r['rank']}"] = r["launches"]["d"]
+    fails = []
+    for r in reps:
+        d, gr = r["d"], r["d"]["grad"]
+        tag = f"[mesh] {name} rank {r['rank']} (d)"
+        want = {"sketch_update_table": 1, "sketch_estimate_table": 1,
+                "knn_dist_tiles": ann_launches(acfg, d["n"], d["k"], world),
+                "segment_reduce": n_iter, "cic_splat": n_iter,
+                "cic_gather": n_iter}
+        checks = [
+            (r["launches"]["d"] == want,
+             f"launches {r['launches']['d']}, expected {want}"),
+            (d["table"] == ref_a["table"], "table != path A's"),
+            (d["reps"] == first["reps"], "reps differ between ranks"),
+            (world > 1 or d["reps"] == ref_a["reps"], "reps != path A's"),
+            (d["ann_idx"] == first["single_idx"]
+             and d["ann_dist"] == first["single_dist"],
+             "ANN graph != the single-device build on the same reps"),
+            (d["reps"] != ref_a["reps"] or (
+                d["ann_idx"] == ref_a["ann_idx"]
+                and d["ann_dist"] == ref_a["ann_dist"]),
+             "ANN graph != path A's on path A's reps"),
+            (all(q["err"] <= 1e-4 * q["gmax"] and q["pad"] == 0.0
+                 for q in (gr, d["grad_last"])),
+             f"sharded gradient off: first {gr}, last {d['grad_last']}"),
+            (d["kl_finite"] and d["kl_last"] < d["kl_first"]
+             and d["iters"] == n_iter,
+             f"KL trace {d['kl_first']} -> {d['kl_last']} over "
+             f"{d['iters']} iterations"),
+            (d["kl"] == first["kl"] and d["embedding"] == first["embedding"],
+             "KL trace or embedding differ between ranks"),
+            (d["finite"] and d["shape"] == [d["n"], 2],
+             f"embedding {d['shape']} not finite or of the wrong shape")]
+        if r["rank"] == 0:
+            checks.append(("kernels" in d["grad_last"],
+                           "K1, K2, K3 inputs of (d) not checked"))
+            # path A's bar, and within 0.02 of the map one device makes
+            # on the same reps, P and init
+            bar = max(0.95, d["single_purity"] - 0.02)
+            checks.append((d["blobs"] == n_blobs and d["purity"] >= bar,
+                           f"{d['blobs']} blobs, 10-NN purity "
+                           f"{d['purity']:.4f} < {bar:.4f} (one device on "
+                           f"the same reps {d['single_purity']:.4f})"))
+        fails += [f"{tag} {msg}" for ok, msg in checks if not ok]
+    for r in reps:
+        d, st = r["d"], r["d"]["stages"]
+        kin = d["grad_last"].get("kernels")
+        iters = st["embed"] - d["stage1_s"] - d["descent_s"] - d["p_s"]
+        coll = r["secs"]["d_collectives"] / MESH_TSNE_ROUNDS * 1e3
+        log(f"[mesh] {name} rank {r['rank']} (d) run(CANCER_1M, mesh=) "
+            f"{r['secs']['d']:.3f} s: sketch {st['sketch']:.3f}, replicas "
+            f"{st['replicas']:.3f}, ANN stage 1 {d['stage1_s']:.3f}, "
+            f"NN-descent {d['descent_s']:.3f} ({d['descent_iters']} rounds, "
+            f"changes {d['descent_changed']}), P build {d['p_s']:.3f}, "
+            f"{d['iters']} iterations ~{iters:.3f} ({iters / d['iters'] * 1e3:.3f}"
+            f" ms an iteration, the block cut included); collectives "
+            f"{coll:.3f} ms an iteration (one all_gather + three "
+            f"all_reduce at G {d['g_final']}); G choices {d['grids']}; "
+            f"{d['n']} reps, k {d['k']}; KL {d['kl_first']:.4f} -> "
+            f"{d['kl_last']:.4f}; "
+            + "; ".join(
+                f"{what} gradient (exaggeration {q['exag']}, G {q['g']}) "
+                f"max|single - mesh| {q['err']:.3e} (max|grad| "
+                f"{q['gmax']:.3e}, relative "
+                f"{q['err'] / max(q['gmax'], 1e-300):.3e}), "
+                f"padded rows {q['pad']}, |KL single - "
+                f"mesh| {q['kl']:.3e} of {q['kl_single']:.4f}"
+                for what, q in (("first", d["grad"]),
+                                ("final map's", d["grad_last"])))
+            + f"; peak "
+            f"device memory {d['peak_gib']:.2f} GiB allocated, "
+            f"{d['peak_reserved_gib']:.2f} reserved (the card had "
+            f"{d['free_gib']:.2f} GiB free as (d) began); warm-up "
+            f"{r['secs']['warm_d']:.3f} s; launches {r['launches']['d']}"
+            + (f"; blob separation {d['inter']:.3f} vs {d['intra']:.3f}, "
+               f"centroid accuracy {d['acc']:.4f}, 10-NN purity "
+               f"{d['purity']:.4f}; the same optimizer on one device (same "
+               f"reps, P and init): purity {d['single_purity']:.4f}, "
+               f"centroid accuracy {d['single_acc']:.4f}, last KL "
+               f"{d['single_kl_last']:.4f}; the final map's sharded call's "
+               f"kernel inputs ({kin['edges']} edges, {kin['rows']} rows, "
+               f"G {kin['g']}) against their plain versions: max abs err "
+               f"K1 {kin['segment_reduce']:.3e}, K2 {kin['cic_splat']:.3e}, "
+               f"K3 {kin['cic_gather']:.3e}" if r["rank"] == 0 else ""))
+    log(f"[mesh] {name} (d): table {first['table']}, reps {first['reps']} "
+        f"(evict_max {first['evict']}), ANN graph {first['ann_idx']}/"
+        f"{first['ann_dist']}, single-device build on the same reps "
+        f"{first['single_idx']}/{first['single_dist']} (path A: "
+        f"{ref_a['table']}, {ref_a['reps']}, {ref_a['ann_idx']}/"
+        f"{ref_a['ann_dist']}); slowest rank "
+        f"{max(r['secs']['d'] for r in reps):.3f} s; {smi}")
     if fails:
         raise AssertionError("\n".join(fails))
 
@@ -2562,7 +2979,7 @@ def main(argv=None) -> int:
     k2, k3, k1_sparse = phase_tsne_sparse(device, pts, warm, spec)
     k1["per_call"]["tsne_sparse"] = k1_sparse
     k5a, k5b = phase_tsne_exact(device, pts, warm, spec)
-    k4, k2_ann, k3_ann = phase_ann(device, pts, warm, spec)
+    k4, k2_ann, k3_ann, ref_a = phase_ann(device, pts, warm, spec)
     k2["per_call"] = {"tsne_sparse": dict(k2), "ann": k2_ann}
     k3["per_call"] = {"tsne_sparse": dict(k3), "ann": k3_ann}
     cfg_i, state, runs, peak = phase_stream(device, pts, pts_np, warm, spec)
@@ -2570,7 +2987,7 @@ def main(argv=None) -> int:
     k6, k7, k8 = phase_sketch_kernels(device, pts, cfg_i, state, runs)
     del state, runs
     phase_service(device, pts, pts_np, spec)
-    phase_mesh(device, pts, pts_np, spec)
+    phase_mesh(device, pts, pts_np, spec, ref_a)
     del pts, pts_np
     phase_parity(cfg, device, peak, args.points)
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")

@@ -12,12 +12,14 @@ embedding as CSV.  The port runs on the card unless ``--device cpu``.
 ``--ranks R`` runs the mesh tier instead: R processes, one a rank, as a
 ``("pod", "data")`` DeviceMesh, each sketching only its own row block of
 the points (the paper's sites); the tables merge by one all-reduce and
-every rank embeds the same heavy hitters, UMAP row-block-sharded over
-the ranks.  The backend follows ``mesh.pick_backend``: gloo for CPU
-ranks or ranks sharing one card, nccl for one card a rank.
+every rank embeds the same heavy hitters, row-block-sharded over the
+ranks: UMAP, or with ``--tsne`` the sparse tSNE (the backend a mesh
+shards) with its kNN graph.  The backend follows ``mesh.pick_backend``:
+gloo for CPU ranks or ranks sharing one card, nccl for one card a rank.
 """
 import argparse
 import dataclasses
+import os
 import sys
 import tempfile
 from pathlib import Path
@@ -73,6 +75,8 @@ def _rank(rank: int, args, init: str):
         torch.device("cuda", 0 if shared else rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    else:                  # CPU ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     backend = mesh_mod.pick_backend(dev, world if shared else 1)
     shape = (2, world // 2) if world % 2 == 0 else (1, world)
     mesh = mesh_mod.init_mesh(rank, world, init, shape, ("pod", "data"),
@@ -83,9 +87,9 @@ def _rank(rank: int, args, init: str):
         rows, _ = mesh_mod.row_block(len(pts), world)
         i = mesh_mod.linear_index(mesh, axes)
         cfg = _config(args)
-        if cfg.embedder == "umap":
-            cfg = dataclasses.replace(
-                cfg, embed_mesh=mesh_mod.make_embed_mesh())
+        if cfg.embedder == "tsne":        # a mesh shards the sparse backend
+            cfg = dataclasses.replace(cfg, embed_backend="sparse")
+        cfg = dataclasses.replace(cfg, embed_mesh=mesh_mod.make_embed_mesh())
         res = pipeline.run(cfg, pts[i * rows:(i + 1) * rows], mesh=mesh,
                            data_axes=axes, device=dev,
                            tsne_cfg=TsneConfig(n_iter=250),

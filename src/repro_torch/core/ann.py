@@ -36,7 +36,18 @@ what keeps a sharded build equal to this one.  :class:`AnnDraws` takes
 any of them from outside instead (the parity tests feed the
 reference's).
 
-Not ported: the mesh build (``_ann_build_mesh``: ROADMAP P12b).
+**Mesh build** (``mesh=``: a 1-D mesh, ``core.mesh``; every rank passes
+the same ``x``).  Stage 1 shards the tile scan: each rank scores a
+contiguous slice of ⌈T/S⌉ sorted tiles through K4, padded with junk tiles
+(id −1) so that every rank gathers the same shape, and one all-gather a
+probe (indices as int32 and distances, in one tensor) makes the probe
+whole; the sort and the probe merge stay replicated.  Stage 2 shards the
+refinement by row block: each rank refines its own rows, padded to a
+whole number of ``block``-row chunks; a round is one all-gather of the
+neighbour blocks and one all-reduce of the change count, which every
+rank reads before it decides to stop, so all ranks leave after the same
+round.  The draws depend on no blocking, so the mesh graph equals the
+single-device graph bit for bit, indices and distances.
 """
 from __future__ import annotations
 
@@ -47,6 +58,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import coo
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.core.candidates import smallest_k
 from repro_torch.kernels import knn_tile
 
@@ -266,6 +278,15 @@ def _merge_probes(probes, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
 
 
+def _layout_pos(g: torch.Tensor, rows_per: int, rpp: int) -> torch.Tensor:
+    """Layout slot of global row ``g`` when ranks own ``rows_per``
+    consecutive rows each, padded to ``rpp`` slots; the single-device
+    layout (``rows_per == rpp``) is the identity."""
+    if rows_per == rpp:
+        return g
+    return (g // rows_per) * rpp + g % rows_per
+
+
 def _reverse_sample(idx_full: torch.Tensor, rid_full: torch.Tensor,
                     off: torch.Tensor, m: int, r: int, n: int
                     ) -> torch.Tensor:
@@ -291,11 +312,14 @@ def _reverse_sample(idx_full: torch.Tensor, rid_full: torch.Tensor,
 def _refine_chunk(x: torch.Tensor, idx_full: torch.Tensor,
                   rev_all: torch.Tensor, idxc: torch.Tensor,
                   d2c: torch.Tensor, ridc: torch.Tensor,
-                  draws: torch.Tensor, cfg: AnnConfig, k: int, n: int):
+                  draws: torch.Tensor, cfg: AnnConfig, k: int, n: int,
+                  rows_per: int = 0, rpp: int = 0):
     """One NN-descent round for a block of rows, given its (rows,
     m + 2m²) slot draws: sample forward + reverse seeds, expand to their
     neighbour lists, score exactly, k-merge.  Returns (idx, d2, changed);
-    padded rows (id −1) pass through."""
+    padded rows (id −1) pass through.  ``idx_full`` is in the layout of
+    ``rows_per`` rows a rank padded to ``rpp`` (:func:`_layout_pos`;
+    the defaults: global row order)."""
     rows = ridc.shape[0]
     m = cfg.sample
     inf = float("inf")
@@ -303,7 +327,7 @@ def _refine_chunk(x: torch.Tensor, idx_full: torch.Tensor,
     fwd = torch.gather(idxc, 1, draws[:, :m])                # (rows, m)
     rev = torch.where(ridc[:, None] >= 0, rev_all[rid_safe], -1)
     union = torch.cat([fwd, rev], dim=1)                     # (rows, 2m)
-    upos = union.clamp(0, n - 1)
+    upos = _layout_pos(union.clamp(0, n - 1), rows_per, rpp)
     # only the m sampled slots of each seed's neighbour list
     ecols = draws[:, m:].reshape(rows, 2 * m, m)
     expand = idx_full.reshape(-1)[upos[:, :, None] * k + ecols]
@@ -336,11 +360,16 @@ def _refine_chunk(x: torch.Tensor, idx_full: torch.Tensor,
 
 def _nn_descent(x: torch.Tensor, idx: torch.Tensor, d2: torch.Tensor,
                 row_ids: torch.Tensor, k: int, n: int, cfg: AnnConfig,
-                bl: int, draws: AnnDraws, stats: Optional[Dict] = None
+                bl: int, draws: AnnDraws, stats: Optional[Dict] = None,
+                mesh=None, rid_full: Optional[torch.Tensor] = None,
+                rows_per: int = 0, rpp: int = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Up to ``cfg.iters`` rounds over ``bl``-row blocks; a round that
     changes ≤ delta·N·k entries is the last.  Every block of a round
-    reads the graph as the round found it."""
+    reads the graph as the round found it.  With ``mesh`` the rows are
+    this rank's block in the layout ``rows_per``/``rpp``: each round
+    all-gathers the neighbour blocks (int32 on the wire) and all-reduces
+    the change count, and ``rid_full`` holds every layout row's id."""
     dev = x.device
     thresh = cfg.delta * n * k
     r = min(cfg.rev_cols, k) if cfg.rev_cols else k
@@ -352,7 +381,13 @@ def _nn_descent(x: torch.Tensor, idx: torch.Tensor, d2: torch.Tensor,
     for it in range(cfg.iters):
         off = (draws.offsets[it] if draws.offsets is not None else
                torch.randint(0, 1 << 30, (n,), generator=gen))
-        rev_all = _reverse_sample(idx, row_ids, off, m, r, n)
+        if mesh is None:
+            idx_full, rif = idx, row_ids
+        else:
+            idx_full = mesh_mod.all_gather(
+                idx.to(torch.int32), mesh, mesh_mod.mesh_axis(mesh)).long()
+            rif = rid_full
+        rev_all = _reverse_sample(idx_full, rif, off, m, r, n)
         given = None if draws.row_draws is None else \
             draws.row_draws[it].to(dev, torch.int64)
         parts, changed = [], torch.zeros((), dtype=torch.int64, device=dev)
@@ -361,12 +396,17 @@ def _nn_descent(x: torch.Tensor, idx: torch.Tensor, d2: torch.Tensor,
             rid_safe = ridc.clamp(min=0)
             rd = given[rid_safe] if given is not None else \
                 _hash_draws(cfg.seed, it, rid_safe, ndraw, k)
-            mi, md, ch = _refine_chunk(x, idx, rev_all, idx[s:s + bl],
-                                       d2[s:s + bl], ridc, rd, cfg, k, n)
+            mi, md, ch = _refine_chunk(x, idx_full, rev_all, idx[s:s + bl],
+                                       d2[s:s + bl], ridc, rd, cfg, k, n,
+                                       rows_per, rpp)
             parts.append((mi, md))
             changed += ch
+        del idx_full, rev_all
         idx = torch.cat([p[0] for p in parts])
         d2 = torch.cat([p[1] for p in parts])
+        if mesh is not None:
+            changed = mesh_mod.all_reduce(changed, mesh,
+                                          mesh_mod.mesh_axis(mesh))
         changes.append(int(changed))
         if changes[-1] <= thresh:
             break
@@ -413,9 +453,84 @@ def _ann_build(x: torch.Tensor, k: int, cfg: AnnConfig, draws: AnnDraws,
     return idx[:n], d2[:n]
 
 
-def _ann_build_mesh(x, k: int, cfg: AnnConfig, mesh):
-    raise NotImplementedError("mesh-sharded approximate kNN is not ported "
-                              "yet: ROADMAP P12b")
+def _wire(idx: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    """(R, k) indices and distances as one (R, 2k) float32 tensor for one
+    all-gather: the indices as int32, their bits viewed as float32."""
+    return torch.cat([idx.to(torch.int32).view(torch.float32), d2], 1)
+
+
+def _unwire(w: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_wire`'s inverse: (int64 indices, distances)."""
+    return w[:, :k].contiguous().view(torch.int32).long(), \
+        w[:, k:].contiguous()
+
+
+def _tile_slice(a: torch.Tensor, lo: int, count: int, fill
+                ) -> torch.Tensor:
+    """Tiles [lo, lo + count) of ``a``, padded with junk tiles of
+    ``fill`` past its end."""
+    part = a[lo:lo + count]
+    short = count - part.shape[0]
+    if short:
+        part = torch.cat([part, a.new_full((short,) + a.shape[1:], fill)])
+    return part
+
+
+def _ann_build_mesh(x: torch.Tensor, k: int, cfg: AnnConfig,
+                    draws: AnnDraws, mesh, stats: Optional[Dict] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mesh build (see the module docstring): stage 1 shards the tile
+    scan, stage 2 the refinement by row block.  Returns the whole
+    (idx (N,k) int64, d2 (N,k)) on every rank, equal to
+    :func:`_ann_build`'s bit for bit."""
+    axis = mesh_mod.mesh_axis(mesh)
+    ns = mesh_mod.axis_size(mesh, axis)
+    s = mesh.get_local_rank(axis)
+    n, d = x.shape
+    dev = x.device
+    x = x.to(torch.float32)
+    t0 = time.perf_counter()
+    rots = draws.rotations if draws.rotations is not None else \
+        _rotations(cfg.seed, cfg.probes, d)
+    probes = []
+    for p in range(cfg.probes):
+        lay = _probe_layout(x, k, rots[p], cfg)
+        tp = -(-lay[0].shape[0] // ns)                       # tiles a rank
+        part = [_tile_slice(a, s * tp, tp, fill)
+                for a, fill in zip(lay[:4], (0.0, -1, 0.0, -1))]
+        ti, td = _tiles_topk(*part, k)
+        del part
+        whole = mesh_mod.all_gather(_wire(ti, td), mesh, axis)
+        probes.append(_unwire(whole[lay[4][:n]], k))
+        del lay, ti, td, whole
+    idx, d2 = _merge_probes(probes, k)
+    del probes
+    if stats is not None:
+        _sync(dev)
+        stats["stage1_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    rows_per, _ = mesh_mod.row_block(n, ns)
+    bl = min(cfg.block, rows_per)
+    rpp = -(-rows_per // bl) * bl
+    slot = torch.arange(ns * rpp, device=dev)
+    gid = (slot // rpp) * rows_per + slot % rpp
+    rid_full = torch.where((slot % rpp < rows_per) & (gid < n), gid, -1)
+    rid = rid_full[s * rpp:(s + 1) * rpp]
+    live = rid[:, None] >= 0
+    safe = rid.clamp(min=0)
+    idx_l = torch.where(live, idx[safe], -1)
+    d2_l = torch.where(live, d2[safe], float("inf"))
+    del idx, d2
+    idx_l, d2_l = _nn_descent(x, idx_l, d2_l, rid, k, n, cfg, bl, draws,
+                              stats, mesh=mesh, rid_full=rid_full,
+                              rows_per=rows_per, rpp=rpp)
+    whole = mesh_mod.all_gather(_wire(idx_l, d2_l), mesh, axis)
+    idx, d2 = _unwire(whole[_layout_pos(torch.arange(n, device=dev),
+                                        rows_per, rpp)], k)
+    if stats is not None:
+        _sync(dev)
+        stats["descent_s"] = time.perf_counter() - t1
+    return idx, d2
 
 
 def ann_knn_graph(x: torch.Tensor, k: int, cfg: Optional[AnnConfig] = None,
@@ -428,14 +543,19 @@ def ann_knn_graph(x: torch.Tensor, k: int, cfg: Optional[AnnConfig] = None,
     the default config.  ``draws`` replaces the port's own draws;
     ``stats`` (a dict) receives the stage seconds (``stage1_s``,
     ``descent_s``, each ending in a device synchronize) and the rounds
-    run (``descent_iters``, ``descent_changed``)."""
+    run (``descent_iters``, ``descent_changed``).  ``mesh`` (``None`` |
+    rank count | 1-D ``DeviceMesh``) shards the build over its ranks
+    (every rank passes the same ``x`` and gets the whole graph, equal to
+    the single-device graph bit for bit)."""
     cfg = cfg if cfg is not None else AnnConfig()
     _check_tile(cfg)
     n = x.shape[0]
     k = min(int(k), max(n - 1, 1))
+    mesh = mesh_mod.resolve_mesh(mesh)
     if mesh is not None:
-        return _ann_build_mesh(x, k, cfg, mesh)
-    idx, d2 = _ann_build(x, k, cfg, draws or AnnDraws(), stats)
+        idx, d2 = _ann_build_mesh(x, k, cfg, draws or AnnDraws(), mesh, stats)
+    else:
+        idx, d2 = _ann_build(x, k, cfg, draws or AnnDraws(), stats)
     return idx, d2.clamp_(min=0.0).sqrt_()
 
 

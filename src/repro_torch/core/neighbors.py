@@ -81,15 +81,16 @@ def knn_graph(x: torch.Tensor, k: int, *, block: Optional[int] = None,
     computes its padded row block against the whole ``x``, and one
     all-gather of the indices and distances makes the graph whole on
     every rank, each row as the single-device build gives it.  The
-    approximate build on a mesh raises (ROADMAP P12b)."""
+    approximate build shards its tile scan and its refinement
+    (``core.ann``) and equals the single-device graph bit for bit."""
     n = x.shape[0]
     k = min(int(k), max(n - 1, 1))
     cfg = _use_ann(method, n, ann)
+    mesh = mesh_mod.resolve_mesh(mesh)
     if cfg is not None:
         return ann_mod.ann_knn_graph(x, k, cfg, mesh=mesh, draws=ann_draws)
     if mesh is None:
         return _knn_rows(x, torch.arange(n, device=x.device), x, k, block)
-    mesh = mesh_mod.resolve_mesh(mesh)
     axis = mesh_mod.mesh_axis(mesh)
     rows_per, _ = mesh_mod.row_block(n, mesh_mod.axis_size(mesh, axis))
     lo = mesh.get_local_rank(axis) * rows_per

@@ -33,9 +33,10 @@ rank calls :func:`run` with its own row block of the points, or
 :func:`run_streaming` with ``shard_fn=``; the sketch stage runs through
 ``geo.geo_extract`` / ``geo.geo_extract_from_shards`` and every rank
 ends with the same heavy hitters, then embeds them.  ``cfg.embed_mesh``
-row-block-shards the UMAP embed over the ranks of a 1-D mesh
-(``umap.run_umap(mesh=)``); on the tSNE embedder it raises
-``NotImplementedError`` naming ROADMAP P12b.
+row-block-shards the embed over the ranks of a 1-D mesh: UMAP
+(``umap.run_umap(mesh=)``) or sparse tSNE (``tsne.run_tsne(mesh=)``,
+its kNN graph exact or approximate, built sharded too); every rank gets
+the whole embedding.
 """
 from __future__ import annotations
 
@@ -357,10 +358,6 @@ def resolve_embed_cfg(cfg: SnsConfig,
     """The embedder's config with SnsConfig's backend, block, grid and kNN
     knobs applied: SnsConfig is authoritative for them, the tsne/umap
     configs carry the algorithms' hyper-parameters."""
-    if cfg.embed_mesh is not None and cfg.embedder == "tsne":
-        raise NotImplementedError("embed_mesh with the tSNE embedder "
-                                  "(mesh-parallel sparse tSNE) is not "
-                                  "ported yet: ROADMAP P12b")
     if cfg.embedder == "tsne":
         tc = tsne_cfg or tsne_mod.TsneConfig(dims=cfg.embed_dims)
         return dataclasses.replace(
@@ -386,14 +383,15 @@ def embed_points(cfg: SnsConfig, x: torch.Tensor, weights: torch.Tensor,
     (embedding, kl_trace): tSNE's per-iteration KL on the device, or
     None for UMAP.  ``negatives`` is UMAP's only; ``ann_draws`` goes to
     an approximate kNN build.  ``cfg.embed_mesh`` row-block-shards UMAP
-    over the ranks of its mesh (every rank calls this with the same
-    representatives and gets the whole embedding)."""
+    or sparse tSNE over the ranks of its mesh (every rank calls this with
+    the same representatives and gets the whole embedding)."""
     embed_mesh = mesh_mod.resolve_mesh(cfg.embed_mesh)
     if ecfg is None:
         ecfg = resolve_embed_cfg(cfg, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg)
     if cfg.embedder == "tsne":
-        return tsne_mod.run_tsne(x, ecfg, weights=weights, init=init,
-                                 generator=generator, ann_draws=ann_draws)
+        return tsne_mod.run_tsne(x, ecfg, weights=weights, mesh=embed_mesh,
+                                 init=init, generator=generator,
+                                 ann_draws=ann_draws)
     emb = umap_mod.run_umap(x, ecfg, weights=weights, mesh=embed_mesh,
                             init=init, generator=generator,
                             negatives=negatives, ann_draws=ann_draws)

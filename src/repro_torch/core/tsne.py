@@ -37,9 +37,24 @@ The sparse backend's kNN graph is exact or approximate
 (``knn_method="ann"``, and ``"auto"`` above 2¹⁶ points: ``core.ann``
 with the distance-tile kernel K4).
 
-Not ported: the mesh-parallel sparse backend (``run_tsne(mesh=...)``,
-``_fft_repulsion_shard``, ``sparse_grad_shard``: ROADMAP P12b); it raises
-``NotImplementedError``.
+Mesh-parallel sparse backend (``run_tsne(mesh=...)``: ``None`` | rank
+count | 1-D ``DeviceMesh``, see ``core.mesh``): every rank passes the same
+``x`` and runs the optimizer over its own contiguous row block of the
+state.  The kNN graph is built sharded (``knn_graph(mesh=)``, exact or
+approximate) and the symmetrized P replicated; each rank then cuts its
+block of the src-sorted edge list on the device (:func:`sparse_p_block`,
+the contiguous slice ``bounds[lo]:bounds[hi]``), so the attraction is a
+local K1 and needs no dst-side exchange.  Repulsion: each rank splats its
+own rows (K2), one all-reduce sums the (3, G, G) grid (with the KL's two
+partials riding along), the FFT runs replicated and each rank gathers
+its own rows back (K3).  An iteration's collectives are one all-gather
+of the blocks and three all-reduces (grid and KL partials, Z, the
+centering mean); the adaptive G reads an all-reduced min/max once a
+stage, so every rank picks the same G.  Every rank draws the full init
+from the same generator and returns the whole embedding and KL trace.
+Per-iteration quantities match the single-device path to fp tolerance;
+long runs decohere, as any change of summation order must under this
+optimizer.  The exact backends refuse a mesh, as the reference does.
 """
 from __future__ import annotations
 
@@ -50,6 +65,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import coo
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.kernels import cic
 from repro_torch.kernels import tsne_forces as fused
 
@@ -262,12 +278,13 @@ def sparse_p_from_knn(knn_idx: torch.Tensor, knn_dist: torch.Tensor,
     neg_d = -(knn_dist.to(torch.float32) ** 2)
     pc = torch.exp(neg_d * stats.beta[:, None] - stats.shift[:, None]) \
         / stats.zp[:, None]                                  # (N, k)
-    c = (stats.w[:, None] * pc).reshape(-1)
+    c = 0.5 * (stats.w[:, None] * pc).reshape(-1)
+    del pc
     rows = torch.arange(n, device=knn_idx.device).repeat_interleave(k)
     cols = knn_idx.reshape(-1).to(torch.int64)
-    src, dst, val = coo.dedupe_edges(torch.cat([rows, cols]),
-                                     torch.cat([cols, rows]),
-                                     torch.cat([0.5 * c, 0.5 * c]))
+    src, dst = torch.cat([rows, cols]), torch.cat([cols, rows])
+    del rows, cols
+    src, dst, val = coo.dedupe_edges(src, dst, torch.cat([c, c]))
     return SparseP(src=src, dst=dst, val=val,
                    bounds=coo.row_bounds(src, n))
 
@@ -362,6 +379,151 @@ def sparse_grad(y: torch.Tensor, sp: SparseP, exaggeration: float = 1.0,
     return grad, a - b + exaggeration * torch.log(z)
 
 
+# ------------------------------------------------------------- mesh sharding
+# Row-block-sharded sparse backend over a 1-D mesh (core.mesh).  Rank s owns
+# global rows [s·rows_per, (s+1)·rows_per) of the optimizer state and the
+# matching contiguous slice of the src-sorted edge list: P only deposits
+# into src rows (the symmetrized COO carries both directions), so tSNE
+# needs no dst-side exchange at all.
+
+class SparseBlock(NamedTuple):
+    """One rank's row block of a :class:`SparseP`: the block's edges in
+    their src-sorted order, padded to the widest block's count ``Ep`` by
+    repeating the block's last edge (edge 0 for a block without edges)
+    with value 0, and local CSR bounds over its ``rows_per`` rows.  The
+    bounds end at the block's own edges: the padding belongs to no row."""
+    src: torch.Tensor     # (Ep,) int64 global ids
+    dst: torch.Tensor     # (Ep,) int64 global ids
+    val: torch.Tensor     # (Ep,) float32, 0 on padded slots
+    bounds: torch.Tensor  # (rows_per+1,) int32, over the local rows
+    row_offset: int       # first global row of the block
+
+
+class ShardedSparseP(NamedTuple):
+    """``SparseP`` laid out for every block of a 1-D mesh on the host
+    (``coo.ShardedEdgeLayout``) with the matching (S, Ep) values, zero on
+    padded slots: the reference's layout, used to check the device cut."""
+    layout: coo.ShardedEdgeLayout
+    val: torch.Tensor     # (S, Ep) float32
+
+    def block(self, s: int, device) -> SparseBlock:
+        """Block ``s`` as a :class:`SparseBlock` on ``device``."""
+        eb = self.layout.block(s, device)
+        return SparseBlock(src=eb.src, dst=eb.dst, val=self.val[s].to(device),
+                           bounds=eb.src_bounds, row_offset=eb.row_offset)
+
+
+def shard_sparse_p(sp: SparseP, n: int, n_shards: int) -> ShardedSparseP:
+    """Every row block's edge slice, built on the host in numpy (the
+    reference's setup; the mesh run cuts its own block on the device with
+    :func:`sparse_p_block` instead)."""
+    layout = coo.shard_edge_layout(sp.src.cpu().numpy(), sp.dst.cpu().numpy(),
+                                   n, n_shards)
+    return ShardedSparseP(layout=layout,
+                          val=coo.shard_payload(layout, sp.val.cpu()))
+
+
+def sparse_p_block(sp: SparseP, n: int, n_shards: int, s: int
+                   ) -> SparseBlock:
+    """Block ``s`` of ``n_shards`` cut from the src-sorted ``sp`` on its
+    device: its live rows [r0, r1) (within [s·rows_per, (s+1)·rows_per)
+    and below n) are the contiguous edges ``sp.bounds[r0]:sp.bounds[r1]``
+    and the local bounds ``sp.bounds[r0:r1+1] − sp.bounds[r0]``, held at
+    their last value over the padded rows.  One host read of the S + 1
+    block boundaries sizes the padding.  The result equals
+    ``shard_sparse_p(sp, n, n_shards).block(s)`` but for the bounds: the
+    host layout hands the padding to the block's last row, here it
+    belongs to no row.  Its value is 0, so the row sums are the same, but
+    K1 gives a row one group of lanes, and a block of fewer edges than
+    the widest would leave one group to walk the whole padding."""
+    dev = sp.src.device
+    rows_per = -(-n // n_shards)
+    cuts = (torch.arange(n_shards + 1, device=dev) * rows_per).clamp_(max=n)
+    eb = sp.bounds[cuts].tolist()
+    ep = max(1, max(b - a for a, b in zip(eb[:-1], eb[1:])))
+    lo, hi = eb[s], eb[s + 1]
+    last = hi - 1 if hi > lo else 0
+    pad = ep - (hi - lo)
+
+    def cut(t):
+        return torch.cat([t[lo:hi], t[last:last + 1].expand(pad)])
+    r0 = min(s * rows_per, n)
+    b = sp.bounds[r0:min(r0 + rows_per, n) + 1] - lo
+    bounds = torch.cat([b, b[-1:].expand(rows_per + 1 - b.shape[0])]).to(
+        torch.int32)
+    return SparseBlock(src=cut(sp.src), dst=cut(sp.dst),
+                       val=torch.cat([sp.val[lo:hi], sp.val.new_zeros(pad)]),
+                       bounds=bounds, row_offset=s * rows_per)
+
+
+def _live_rows(blk: SparseBlock, n: int) -> torch.Tensor:
+    """(rows_per,) bool: the block's rows below ``n``."""
+    rows_per = blk.bounds.shape[0] - 1
+    return blk.row_offset + torch.arange(rows_per,
+                                         device=blk.bounds.device) < n
+
+
+def _fft_repulsion_shard(y_blk: torch.Tensor, live_blk: torch.Tensor,
+                         y_full: torch.Tensor, n: int, grid_size: int,
+                         mesh, axis: str, ride: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """:func:`fft_repulsion` for one rank's row block.  The grid's
+    geometry comes from the live rows of the gathered ``y_full`` (the
+    same on every rank); the rank splats its own rows (K2), ONE
+    all-reduce sums the grid together with ``ride`` (a few partial sums
+    that need the same reduction), the FFT runs replicated and the rank
+    gathers its rows back (K3); Z is an all-reduce of Σ φ₀·mass, minus n.
+    Returns (rep (rows_per, 2), z, the summed ``ride``)."""
+    g = grid_size
+    live_full = (torch.arange(y_full.shape[0], device=y_full.device)
+                 < n)[:, None]
+    lo = torch.where(live_full, y_full, math.inf).min(0).values
+    hi = torch.where(live_full, y_full, -math.inf).max(0).values
+    span = (hi - lo).max().clamp(min=1e-9)
+    h = span / (g - 3)
+    # padded rows carry no mass; they sit on a valid cell
+    y_blk = torch.where(live_blk[:, None], y_blk.to(torch.float32), lo)
+    u = (y_blk - lo[None, :]) / h + 1.0
+    i0 = torch.floor(u).to(torch.int32).clamp_(0, g - 2)
+    f = u - i0
+    mass = live_blk.to(torch.float32)
+    masses = torch.stack([mass, y_blk[:, 0] * mass, y_blk[:, 1] * mass], 1)
+    grid = cic.cic_splat(i0, f, masses, g)
+    tot = mesh_mod.all_reduce(torch.cat([grid.reshape(-1), ride]), mesh,
+                              axis)
+    grid = tot[:grid.numel()].reshape(grid.shape)
+    conv1, conv0 = _grid_convolve(grid, g, h)
+    fields = torch.stack([conv1[0], conv1[1], conv1[2], conv0], -1)
+    got = cic.cic_gather(fields.permute(2, 0, 1), i0, f)            # (B, 4)
+    z = mesh_mod.all_reduce((got[:, 3] * mass).sum(), mesh, axis)
+    z = (z - n).clamp(min=1e-12)
+    return got[:, :1] * y_blk - got[:, 1:3], z, tot[grid.numel():]
+
+
+def sparse_grad_shard(y_blk: torch.Tensor, blk: SparseBlock,
+                      y_full: torch.Tensor, exaggeration: float,
+                      grid_size: int, mesh, axis: str, n: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sparse_grad` for one rank: ``y_blk`` (rows_per, 2) its
+    rows, ``blk`` its :class:`SparseBlock`, ``y_full`` the all-gathered
+    (n_padded, 2) positions.  The attraction is a local K1 over the
+    block's edges; the KL's two partials ride with the grid's
+    all-reduce.  Returns (grad (rows_per, 2), exactly 0 on padded rows;
+    the KL, the same on every rank)."""
+    diff = y_full[blk.src] - y_full[blk.dst]
+    num = 1.0 / (1.0 + (diff * diff).sum(1))                 # (Ep,)
+    pe = exaggeration * blk.val                              # 0 on padding
+    att = coo.segment_reduce((pe * num)[:, None] * diff, blk.bounds)
+    a = torch.where(pe > 0, pe * torch.log(pe.clamp(min=1e-37)), 0.0).sum()
+    b = (pe * torch.log(num.clamp(min=1e-37))).sum()
+    live = _live_rows(blk, n)
+    rep, z, ab = _fft_repulsion_shard(y_blk, live, y_full, n, grid_size,
+                                      mesh, axis, torch.stack([a, b]))
+    grad = torch.where(live[:, None], 4.0 * (att - rep / z), 0.0)
+    return grad, ab[0] - ab[1] + exaggeration * torch.log(z)
+
+
 # ----------------------------------------------------------- exact backends
 
 def kl_divergence(p: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -434,6 +596,21 @@ def _momentum_update(state: TsneState, grad: torch.Tensor, mom: float,
     return TsneState(y, vel, gains)
 
 
+def _momentum_update_shard(state: TsneState, grad: torch.Tensor, mom: float,
+                           cfg: TsneConfig, mesh, axis: str,
+                           live_blk: torch.Tensor, n: int) -> TsneState:
+    """:func:`_momentum_update` on a row block: the recentering mean is an
+    all-reduce of the live rows' partial sums."""
+    same_sign = torch.sign(grad) == torch.sign(state.velocity)
+    gains = torch.where(same_sign, state.gains * 0.8, state.gains + 0.2)
+    gains = gains.clamp(min=cfg.min_gain)
+    vel = mom * state.velocity - cfg.learning_rate * gains * grad
+    y = state.y + vel
+    total = mesh_mod.all_reduce(
+        torch.where(live_blk[:, None], y, 0.0).sum(0), mesh, axis)
+    return TsneState(y - (total / n)[None, :], vel, gains)
+
+
 def _phase(i: int, cfg: TsneConfig) -> Tuple[float, float]:
     """Schedule scalars (exaggeration, momentum) at iteration i."""
     exag = cfg.early_exaggeration if i < cfg.exaggeration_iters else 1.0
@@ -454,11 +631,21 @@ GradFn = Callable[[torch.Tensor, float, int],
                   Tuple[torch.Tensor, torch.Tensor]]
 
 
+def _span(y: torch.Tensor) -> float:
+    """The embedding's larger side, read back to the host."""
+    return float((y.max(0).values - y.min(0).values).max())
+
+
 def _optimize(y0: torch.Tensor, grad_fn: GradFn, cfg: TsneConfig,
-              adaptive: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+              adaptive: bool, update=None, span=_span
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The momentum/gains loop; with ``adaptive`` it runs in stages of
     ``cfg.adaptive_interval`` iterations and reads the span back after
-    each stage to grow G."""
+    each stage to grow G.  ``update(state, grad, mom)`` and ``span(y)``
+    replace the single-device update and span (the mesh path's)."""
+    if update is None:
+        def update(st, grad, mom):
+            return _momentum_update(st, grad, mom, cfg)
     state = TsneState(y=y0, velocity=torch.zeros_like(y0),
                       gains=torch.ones_like(y0))
     kls = torch.zeros((cfg.n_iter,), device=y0.device)
@@ -470,14 +657,52 @@ def _optimize(y0: torch.Tensor, grad_fn: GradFn, cfg: TsneConfig,
         for i in range(it, end):
             exag, mom = _phase(i, cfg)
             grad, kl = grad_fn(state.y, exag, g)
-            state = _momentum_update(state, grad, mom, cfg)
+            state = update(state, grad, mom)
             kls[i] = kl
         it = end
         if adaptive and it < cfg.n_iter:
-            span = float((state.y.max(0).values
-                          - state.y.min(0).values).max())
-            g = _grid_for_span(span, g, cfg)
+            g = _grid_for_span(span(state.y), g, cfg)
     return state.y, kls
+
+
+def _run_tsne_sparse_mesh(x: torch.Tensor, y0: torch.Tensor, cfg: TsneConfig,
+                          weights: Optional[torch.Tensor], mesh, ann_draws
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sparse optimizer over the ranks of a 1-D mesh (fixed or
+    adaptive G): the sharded kNN build and the replicated P, this rank's
+    block cut on the device, then the loop on the block.  ``y0`` is the
+    whole (N, 2) init, the same on every rank.  Returns the whole
+    embedding and KL trace on every rank."""
+    axis = mesh_mod.mesh_axis(mesh)
+    n_shards = mesh_mod.axis_size(mesh, axis)
+    n = x.shape[0]
+    sp = build_sparse_p(x, cfg.perplexity, k=cfg.knn or None,
+                        weights=weights, search_iters=cfg.sigma_search_iters,
+                        block=cfg.block, mesh=mesh, method=cfg.knn_method,
+                        ann=cfg.ann, ann_draws=ann_draws)
+    blk = sparse_p_block(sp, n, n_shards, mesh.get_local_rank(axis))
+    del sp
+    rows_per, n_pad = mesh_mod.row_block(n, n_shards)
+    live = _live_rows(blk, n)
+    y_blk = torch.cat([y0, y0.new_zeros((n_pad - n, y0.shape[1]))])[
+        blk.row_offset:blk.row_offset + rows_per].clone()
+
+    def grad_fn(y, exag, g):
+        y_full = mesh_mod.all_gather(y, mesh, axis)
+        return sparse_grad_shard(y, blk, y_full, exag, g, mesh, axis, n)
+
+    def update(st, grad, mom):
+        return _momentum_update_shard(st, grad, mom, cfg, mesh, axis, live, n)
+
+    def span(y):
+        lo = torch.where(live[:, None], y, math.inf).min(0).values
+        hi = torch.where(live[:, None], y, -math.inf).max(0).values
+        ext = mesh_mod.all_reduce(torch.cat([hi, -lo]), mesh, axis, "max")
+        return float((ext[:2] + ext[2:]).max())
+
+    y_blk, kls = _optimize(y_blk, grad_fn, cfg, cfg.grid_interval > 0,
+                           update=update, span=span)
+    return mesh_mod.all_gather(y_blk, mesh, axis)[:n], kls
 
 
 def run_tsne(x: torch.Tensor, cfg: TsneConfig,
@@ -491,7 +716,10 @@ def run_tsne(x: torch.Tensor, cfg: TsneConfig,
     the optimizer at given (N, dims) coordinates instead of the
     1e-4·normal cold start drawn from ``generator``; with ``n_iter == 0``
     the init comes back bit for bit.  ``ann_draws`` goes to the sparse
-    backend's approximate kNN build."""
+    backend's approximate kNN build.  ``mesh`` (the sparse backend only)
+    shards the run over the ranks of a 1-D mesh: every rank passes the
+    same ``x`` and draws the same init, and gets the whole embedding and
+    KL trace (see the module docstring)."""
     backend = backend or cfg.backend
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; want one of {BACKENDS}")
@@ -501,9 +729,6 @@ def run_tsne(x: torch.Tensor, cfg: TsneConfig,
     if cfg.cic not in CIC_PATHS:
         raise ValueError(f"unknown cic {cfg.cic!r}; want one of {CIC_PATHS}")
     init = validate_init(init, x.shape[0], cfg.dims)
-    if mesh is not None:
-        raise NotImplementedError("mesh-parallel tSNE is not ported yet: "
-                                  "ROADMAP P12b")
     n = x.shape[0]
     if init is not None:
         y0 = init.to(x.device)
@@ -512,6 +737,12 @@ def run_tsne(x: torch.Tensor, cfg: TsneConfig,
                                 device=x.device)
     if cfg.n_iter == 0:
         return y0, torch.zeros((0,), device=x.device)
+    mesh = mesh_mod.resolve_mesh(mesh)
+    if mesh is not None:
+        if backend != "sparse":
+            raise ValueError(
+                f"mesh-parallel tSNE needs backend='sparse'; got {backend!r}")
+        return _run_tsne_sparse_mesh(x, y0, cfg, weights, mesh, ann_draws)
     if backend == "sparse":
         sp = build_sparse_p(x, cfg.perplexity, k=cfg.knn or None,
                             weights=weights,

@@ -1,6 +1,7 @@
-"""One rank of the port's mesh tier, for tests/test_torch_mesh.py (CPU
-ranks, gloo) and tests/test_torch_cuda_mesh.py (card ranks).  Imports no
-jax: the card machine has none.
+"""One rank of the port's mesh tier, for tests/test_torch_mesh.py and
+tests/test_torch_mesh_tsne.py (CPU ranks, gloo) and
+tests/test_torch_cuda_mesh.py (card ranks).  Imports no jax: the card
+machine has none.
 
     python tests/_torch_mesh_ranks.py JOB RANK WORLD INIT_METHOD IN OUT
 
@@ -182,12 +183,125 @@ def card(rank: int, world: int, init: str, inp: dict) -> dict:
             **_hh("hh", res.hh)}
 
 
+TSNE_PREFIX = dict(backend="sparse", n_iter=8, grid_size=32, knn=10,
+                  grid_max=64, adaptive_interval=4, exaggeration_iters=5,
+                  momentum_switch=5)          # tests/test_mesh_embed.py:256
+TSNE_LONG = dict(backend="sparse", n_iter=150, grid_size=32, knn=10,
+                 exaggeration_iters=40, momentum_switch=40,
+                 learning_rate=20.0)           # tests/test_mesh_embed.py:275
+ANN_DRAWN = dict(probes=1, bucket=32)           # descent does the work
+
+
+def _sparse_grad_block(x, sp, y, world, rank, mesh, grid_size=32,
+                       exag=12.0):
+    """This rank's sharded gradient of ``sp`` at ``y`` (cut on the
+    device), gathered whole: (grad (n_padded, 2), KL)."""
+    import torch
+    from repro_torch.core import mesh as mesh_mod
+    from repro_torch.core import tsne
+    n = x.shape[0]
+    axis = mesh_mod.mesh_axis(mesh)
+    blk = tsne.sparse_p_block(sp, n, world, rank)
+    rows_per, n_pad = mesh_mod.row_block(n, world)
+    yp = torch.cat([y, y.new_zeros((n_pad - n, 2))])
+    y_blk = yp[blk.row_offset:blk.row_offset + rows_per].clone()
+    y_full = mesh_mod.all_gather(y_blk, mesh, axis)
+    g, kl = tsne.sparse_grad_shard(y_blk, blk, y_full, exag, grid_size,
+                                   mesh, axis, n)
+    return mesh_mod.all_gather(g, mesh, axis), kl
+
+
+def tsne(rank: int, world: int, init: str, inp: dict) -> dict:
+    """The sparse tSNE and the approximate kNN on a 1-D mesh of CPU
+    ranks: the sharded gradient of the fed P, the optimizer from fed
+    inits, the ANN graph, and the pipeline with ``embed_mesh``."""
+    import torch
+    from repro_torch import carry
+    from repro_torch.core import ann, neighbors, pipeline
+    from repro_torch.core import mesh as mesh_mod
+    from repro_torch.core import tsne as tsne_mod
+    mesh = mesh_mod.init_mesh(rank, world, init, (world,),
+                              (mesh_mod.EMBED_AXIS,),
+                              backend=mesh_mod.pick_backend("cpu"))
+    x, w = torch.from_numpy(inp["blob_x"]), torch.from_numpy(inp["blob_w"])
+    sp = tsne_mod.SparseP(*[torch.from_numpy(inp[f"sp_{f}"])
+                            for f in tsne_mod.SparseP._fields])
+    g, kl = _sparse_grad_block(x, sp, torch.from_numpy(inp["grad_y"]),
+                               world, rank, mesh)
+    out = {"grad": g.numpy(), "grad_kl": kl.numpy()}
+    for gi in (0.0, 0.5):
+        cfg = tsne_mod.TsneConfig(grid_interval=gi, **TSNE_PREFIX)
+        y, k = tsne_mod.run_tsne(x, cfg, weights=w, mesh=mesh,
+                                 init=torch.from_numpy(inp["prefix_init"]))
+        out[f"prefix_{gi}"], out[f"prefix_kl_{gi}"] = y.numpy(), k.numpy()
+    _, k = tsne_mod.run_tsne(x, tsne_mod.TsneConfig(**TSNE_LONG), weights=w,
+                             mesh=mesh,
+                             init=torch.from_numpy(inp["long_init"]))
+    out["long_kl"] = k.numpy()
+    for n in (203, 100):
+        i, d = neighbors.knn_graph(x[:n], 10, method="ann", mesh=mesh)
+        out[f"ann_idx_{n}"], out[f"ann_dist_{n}"] = i.numpy(), d.numpy()
+    xa = torch.from_numpy(inp["ann_x"])
+    draws = carry.ann_draws_from_numpy(inp["ann_rot"], inp["ann_off"],
+                                       inp["ann_slots"])
+    i, d = ann.ann_knn_graph(xa, int(inp["ann_k"]),
+                             ann.AnnConfig(**ANN_DRAWN), mesh=mesh,
+                             draws=draws)
+    out["drawn_idx"], out["drawn_dist"] = i.numpy(), d.numpy()
+    cfg = pipeline.SnsConfig(bins=8, rows=4, log2_cols=10, top_k=64,
+                             embedder="tsne", embed_backend="sparse",
+                             embed_mesh=mesh)
+    r = pipeline.run(cfg, inp["pipe_pts"], device="cpu",
+                     tsne_cfg=tsne_mod.TsneConfig(
+                         n_iter=8, learning_rate=10.0))
+    out["pipe_embedding"] = r.embedding.numpy()
+    out["pipe_kl"] = r.kl_trace.numpy()
+    return out
+
+
+def card_tsne(rank: int, world: int, init: str, inp: dict) -> dict:
+    """The ANN graph on a 1-D mesh of ranks on the card (gloo ranks
+    sharing cuda:0 when the inputs say ``shared``, else one nccl rank per
+    card), then the sharded gradient of the P built from it.  Returns
+    the graph, the gathered gradient, the KL and the launches."""
+    import torch
+    from repro_torch.core import mesh as mesh_mod
+    from repro_torch.core import neighbors
+    from repro_torch.core import tsne as tsne_mod
+    from repro_torch.kernels import LAUNCHES
+    shared = bool(inp["shared"])
+    dev = torch.device("cuda", 0 if shared else rank)
+    torch.cuda.set_device(dev)
+    mesh = mesh_mod.init_mesh(
+        rank, world, init, (world,), (mesh_mod.EMBED_AXIS,),
+        backend=mesh_mod.pick_backend(dev, world if shared else 1))
+    x = torch.from_numpy(inp["x"]).to(dev)
+    w = torch.from_numpy(inp["w"]).to(dev)
+    LAUNCHES.clear()
+    idx, dist = neighbors.knn_graph(x, int(inp["k"]), method="ann",
+                                    mesh=mesh)
+    k4 = LAUNCHES["knn_dist_tiles"]
+    sp = tsne_mod.sparse_p_from_knn(idx, dist, float(inp["perplexity"]),
+                                    weights=w)
+    LAUNCHES.clear()
+    g, kl = _sparse_grad_block(x, sp, torch.from_numpy(inp["y"]).to(dev),
+                               world, rank, mesh,
+                               grid_size=int(inp["grid"]))
+    torch.cuda.synchronize()
+    return {"idx": idx.cpu().numpy(), "dist": dist.cpu().numpy(),
+            "grad": g.cpu().numpy(), "kl": kl.cpu().numpy(),
+            "k4": np.int64(k4),
+            **{op: np.int64(LAUNCHES[op]) for op in
+               ("segment_reduce", "cic_splat", "cic_gather")}}
+
+
 def main(argv) -> int:
     job, rank, world, init, inputs, out = argv
     rank, world, out = int(rank), int(world), Path(out)
     try:
         inp = dict(np.load(inputs))
-        res = {"geo": geo, "card": card}[job](rank, world, init, inp)
+        res = {"geo": geo, "card": card, "tsne": tsne,
+               "card_tsne": card_tsne}[job](rank, world, init, inp)
         np.savez(out / f"rank{rank}.npz", **res)
     except Exception:
         (out / f"rank{rank}.err").write_text(traceback.format_exc())

@@ -314,7 +314,8 @@ def test_config_and_unported_mesh():
     x = torch.from_numpy(_points(50, 3, 0))
     with pytest.raises(ValueError, match="tile backend"):
         ann.ann_knn_graph(x, 5, ann.AnnConfig(tile="cuda"))
-    with pytest.raises(NotImplementedError, match="P12"):
+    # the mesh build (P12b) runs; without a process group it is refused
+    with pytest.raises(ValueError, match="torch.distributed initialized"):
         neighbors.knn_graph(x, 5, method="ann", mesh=2)
 
 

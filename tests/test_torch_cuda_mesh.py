@@ -5,14 +5,19 @@ reference.
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_mesh.py
 
 Ranks are processes (tests/_torch_mesh_ranks.py): gloo ranks sharing
-cuda:0, and one nccl rank.
+cuda:0, and one nccl rank.  The sketch tier must give the single-device
+table bit for bit; the approximate kNN on a mesh the single-device graph
+bit for bit, and the sharded tSNE gradient of its P the single-device
+``sparse_grad`` within 1e-4·max|grad| (the grid's all-reduce sums float32
+grids in another order), exactly 0 on padded rows, the KL within 1e-3.
 """
 import numpy as np
 import pytest
 import torch
 
 import _torch_mesh_ranks as ranks_mod
-from repro_torch.core import geo, hashing, prng, quantize, sketch
+from repro_torch.core import ann, geo, hashing, neighbors, prng, quantize
+from repro_torch.core import sketch, tsne
 from repro_torch.core import heavy_hitters as hh_mod
 from repro_torch.data.synthetic import MixtureSpec, gaussian_mixture
 
@@ -88,3 +93,73 @@ def test_one_nccl_rank_gives_the_same_bits(case):
     for f in HH_FIELDS:
         np.testing.assert_array_equal(o[f"hh_{f}"],
                                       getattr(hh, f).cpu().numpy())
+
+
+TSNE_CASE = dict(n=20_003, k=30, perplexity=10.0, grid=64)
+
+
+@pytest.fixture(scope="module")
+def tsne_case(card, tmp_path_factory):
+    """Ten weighted blobs of 20 003 points in 8 dims on the card, their
+    single-device ANN graph and the single-device sparse gradient of its
+    P at a spread-out y."""
+    rng = np.random.default_rng(0)
+    n = TSNE_CASE["n"]
+    centers = rng.uniform(-20, 20, size=(10, 8))
+    x = (centers[rng.integers(0, 10, n)]
+         + rng.normal(size=(n, 8))).astype(np.float32)
+    w = rng.integers(1, 50, n).astype(np.float32)
+    y = (2.0 * rng.normal(size=(n, 2))).astype(np.float32)
+    xt, wt = torch.from_numpy(x).to(card), torch.from_numpy(w).to(card)
+    idx, dist = neighbors.knn_graph(xt, TSNE_CASE["k"], method="ann")
+    sp = tsne.sparse_p_from_knn(idx, dist, TSNE_CASE["perplexity"],
+                                weights=wt)
+    g, kl = tsne.sparse_grad(torch.from_numpy(y).to(card), sp, 12.0,
+                             grid_size=TSNE_CASE["grid"])
+    inp = dict(x=x, w=w, y=y, k=np.int64(TSNE_CASE["k"]),
+               perplexity=np.float64(TSNE_CASE["perplexity"]),
+               grid=np.int64(TSNE_CASE["grid"]))
+    want = dict(idx=idx.cpu().numpy(), dist=dist.cpu().numpy(),
+                grad=g.cpu().numpy(), kl=kl.item())
+    return inp, want, tmp_path_factory.mktemp("tsne_ranks")
+
+
+def _tsne_ranks(case, world, shared):
+    inp, want, tmp = case
+    out = tmp / f"{world}-{'gloo' if shared else 'nccl'}"
+    out.mkdir()
+    np.savez(out / "in.npz", shared=np.bool_(shared), **inp)
+    outs = ranks_mod.spawn("card_tsne", world, out / "in.npz", out)
+    n = inp["x"].shape[0]
+    cfg = ann.AnnConfig()
+    tiles = -(-n // ann._bucket_size(cfg, int(inp["k"])))
+    per_rank = -(-tiles // world)
+    k4 = cfg.probes * -(-per_rank // ann._TILE_CHUNK)
+    # relative to the largest entry: the entries are far below 1 here
+    scale = float(np.abs(want["grad"]).max())
+    for o in outs:
+        np.testing.assert_array_equal(o["idx"], want["idx"])
+        np.testing.assert_array_equal(o["dist"], want["dist"])
+        assert float(np.abs(o["grad"][:n] - want["grad"]).max()) <= \
+            1e-4 * scale
+        assert float(np.abs(o["grad"][n:]).max(initial=0.0)) == 0.0
+        assert abs(float(o["kl"]) - want["kl"]) <= 1e-3
+        assert int(o["k4"]) == k4
+        for op in ("segment_reduce", "cic_splat", "cic_gather"):
+            assert int(o[op]) == 1, op
+
+
+@pytest.mark.cuda
+def test_gloo_ranks_sharing_the_card_run_the_ann_and_the_gradient(
+        tsne_case):
+    """Two gloo ranks on cuda:0: the mesh ANN graph equals the
+    single-device one bit for bit, K4 ran on each rank's half of the
+    tiles, and the sharded gradient (K1, K2, K3 once a rank) is within
+    1e-4·max|grad| of ``sparse_grad``."""
+    _tsne_ranks(tsne_case, 2, shared=True)
+
+
+@pytest.mark.cuda
+def test_one_nccl_rank_runs_the_ann_and_the_gradient(tsne_case):
+    """One nccl rank: the same graph bits and gradient bar."""
+    _tsne_ranks(tsne_case, 1, shared=False)

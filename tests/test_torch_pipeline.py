@@ -119,10 +119,11 @@ def test_config_has_the_reference_fields_less_kernel_mode():
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
-    """The tSNE embed mesh (P12b) raises; the ported mesh paths (P12)
-    refuse what the reference refuses (a chunk iterator with a mesh, mesh
-    streaming without shard_fn or grid) and what is no mesh, without a
-    process group; chunk-iterator input (P11, streaming ingest) runs
+    """The embed mesh needs a process group under both embedders (the
+    tSNE one, P12b, once raising here, now runs); the ported mesh paths
+    (P12) refuse what the reference refuses (a chunk iterator with a
+    mesh, mesh streaming without shard_fn or grid) and what is no mesh,
+    without a process group; chunk-iterator input (P11, streaming ingest) runs
     through run and sketch_stage to the one-shot's heavy hitters; the
     approximate kNN (P9) runs under both embedders."""
     pts, _ = gaussian_mixture(500, MixtureSpec(dims=3), seed=1)
@@ -133,7 +134,7 @@ def test_unported_paths_raise_with_their_roadmap_item():
     small = dict(umap_cfg=umap.UmapConfig(n_neighbors=3, n_epochs=1))
     cases = [
         (dataclasses.replace(cfg, embedder="tsne", embed_mesh=2), pts, {},
-         NotImplementedError, "P12b"),
+         ValueError, "torch.distributed initialized"),
         (dataclasses.replace(cfg, embed_mesh=2), pts, small, ValueError,
          "torch.distributed initialized"),
         (cfg, pts, {"mesh": 2}, TypeError, "DeviceMesh"),

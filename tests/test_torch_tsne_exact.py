@@ -244,7 +244,8 @@ def test_run_tsne_exact_backends_fail_loud():
         tsne.run_tsne(x, tsne.TsneConfig(cic="cuda"))
     with pytest.raises(ValueError, match="init must have shape"):
         tsne.run_tsne(x, tsne.TsneConfig(), init=torch.zeros((3, 2)))
-    with pytest.raises(NotImplementedError, match="P12"):
+    # a mesh (P12b, once unported) needs a process group first
+    with pytest.raises(ValueError, match="torch.distributed initialized"):
         tsne.run_tsne(x, tsne.TsneConfig(backend="tiled"), mesh=2)
     assert "kernel_mode" not in {
         f.name for f in dataclasses.fields(tsne.TsneConfig)}

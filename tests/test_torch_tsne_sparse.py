@@ -192,8 +192,9 @@ def test_pipeline_tsne_config_and_unported_paths():
         ref_paper.CANCER_100K))
     assert want.pop("kernel_mode") == "auto"
     assert dataclasses.asdict(pipeline.resolve_embed_cfg(cfg)) == want
-    with pytest.raises(NotImplementedError, match="P12"):
-        pipeline.resolve_embed_cfg(dataclasses.replace(cfg, embed_mesh=2))
+    # the embed mesh (P12b, once refused here) leaves the config alone
+    assert pipeline.resolve_embed_cfg(dataclasses.replace(
+        cfg, embed_mesh=2)) == pipeline.resolve_embed_cfg(cfg)
 
 
 def test_pipeline_run_tsne_sparse_matches_reference():

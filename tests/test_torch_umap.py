@@ -35,16 +35,17 @@ def test_knn_graph_matches_reference(block):
 
 
 def test_knn_graph_unported_paths_raise():
-    """The approximate mesh build (P12b) and unknown methods raise, and
-    so does an exact mesh build without a process group; "ann" (P9, once
-    raising here too) returns the graph."""
+    """Unknown methods raise, and so do the exact and the approximate
+    mesh builds without a process group (the approximate one, P12b, once
+    raising as unported); "ann" (P9, once raising here too) returns the
+    graph."""
     x = torch.zeros((10, 2))
     idx, dist = neighbors.knn_graph(x + torch.arange(10.)[:, None], 3,
                                     method="ann")
     assert idx.shape == dist.shape == (10, 3)
     assert torch.equal(idx, neighbors.knn_graph(
         x + torch.arange(10.)[:, None], 3)[0])
-    with pytest.raises(NotImplementedError, match="P12b"):
+    with pytest.raises(ValueError, match="torch.distributed initialized"):
         neighbors.knn_graph(x, 3, method="ann", mesh=4)
     with pytest.raises(ValueError, match="torch.distributed initialized"):
         neighbors.knn_graph(x, 3, mesh=4)
