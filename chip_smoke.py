@@ -150,7 +150,28 @@ Phases, each failing the run (non-zero exit) if it fails:
                  to the port's CPU run, each at its default hash draw; the
                  streaming sketch stage likewise (table, reservoir, count,
                  evict_max, HH), and the ingest stage's peak memory at 26M
-                 within 10 % of its peak at 2^20 points.
+                 within 10 % of its peak at 2^20 points;
+14. lm         — the LM stack's serving path (no TPU kernel lies on it):
+                 the twin check, every SMOKE config and llama3.2-3b at
+                 full width and depth 2 in f32 with the same weights
+                 (drawn on the CPU) and prompt through prefill and 4
+                 greedy decode steps on the card and on the CPU (logits
+                 within LM_TWIN_TOL, tokens equal); then L1, llama3.2-3b
+                 whole (28 layers, bf16, 7.21 GB), and L2, jamba-v0.1-52b
+                 at full width cut to one superblock of 8 layers (all of
+                 it is 103 GB in bf16, over the card's 80), each through
+                 ``launch.serve.serve`` at B 8, prompt 512, gen 32 twice
+                 on weights drawn on the card: finite logits, the final
+                 position prompt + gen − 1, equal tokens; prints prefill
+                 ms and tok/s, decode ms a step (p50, p99), aggregate
+                 tok/s, the step's bound (weights, K/V and SSM states at
+                 3.35 TB/s), a profile of 10 decode steps (launches, busy
+                 share), peak memory; then prefill L − 1 and one decode
+                 step against prefill L (L1 at 512, L2 at 256): in bf16
+                 within LM_TF_BF16_TOL (max, relative to the logits'
+                 scale, and mean), on the same weights in f32 within
+                 LM_TF_TOL, and the bf16 decode step as close to the f32
+                 prefill as the bf16 prefill (LM_BF16_DECODE_RATIO).
 
 Prints the nvidia-smi name/power-limit line, then one
 ``{"kernels": [...]}`` line (nine entries: K1-K4, K5a, K5b, K6-K8), then ``{"ok": true, "device": ...}`` last.
@@ -202,6 +223,21 @@ MESH_COLLECTIVE_ROUNDS = 50         # path M: epochs of collectives timed
 MESH_TSNE_ROUNDS = 20               # path M (d): iterations' collectives timed
 # the sketch stage of every one-shot path: one scatter, one estimate
 ONE_SHOT_SKETCH = {"sketch_update_table": 1, "sketch_estimate_table": 1}
+LM_TWIN_TOL = 1e-4                  # lm: card vs CPU logits, f32, TF32 off
+LM_SERVE = dict(batch=8, prompt_len=512, gen=32)     # lm: L1 and L2
+LM_PROFILE_STEPS = 10
+# lm: f32 teacher-forced gap, relative to max(1, |logits|) (measured 2.3e-5
+# at L1's 28 layers)
+LM_TF_TOL = 1e-3
+# lm: bf16 teacher-forced gap, the reference's bar of 2e-2 held on the max
+# relative to max(1, |logits|) and on the mean.  Entrywise rtol = atol =
+# 2e-2 fails at full width on the CPU as on the card (chip_diag_lm.py: L1's
+# gap max 7.2e-2, mean 1.39e-2 on the CPU, 7.0e-2 and 1.37e-2 on the card,
+# the same weights and row), the rounding of a bf16 residual stream.
+LM_TF_BF16_TOL = 2e-2
+# lm: in bf16 the decode step is as close to the f32 prefill as the bf16
+# prefill is (mean |d logits|; chip_diag_lm.py: ratio 1.00 on L1 and L2)
+LM_BF16_DECODE_RATIO = 1.25
 # each driven path's launches, by tag (K7 and K8 run on all of them)
 PATH_LAUNCHES = {}
 
@@ -996,7 +1032,8 @@ def profile_steps(tag, step, iters, unit):
     for t_us, count, name in kernels[:12]:
         log(f"[profile]   {t_us / iters:9.1f} us/{unit}  "
             f"x{count // iters:<3d} {name[:90]}")
-    return plain_wall, busy_us / 1e3 / iters
+    return (plain_wall, busy_us / 1e3 / iters,
+            sum(c for _, c, _ in kernels) / iters)
 
 
 def phase_profile_umap(y, lay, memb_n, ecfg):
@@ -2932,6 +2969,214 @@ def phase_parity(cfg, device, stream_peak, stream_points):
                              "stream's length")
 
 
+def lm_twin(tag, cfg, batch, prompt, steps, device):
+    """The same weights (drawn on the CPU from a seed, then copied to the
+    card) and prompt through ``serve``'s prefill and ``steps`` greedy
+    decode steps on the CPU and on the card, in f32 (TF32 off): the logits
+    within LM_TWIN_TOL and the same greedy tokens at every step."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_mod
+
+    model = model_mod.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu")
+    runs = [serve.serve(cfg, batch, prompt, steps + 1, seed=0, device=dev,
+                        model=model.to(dev)) for dev in ("cpu", device)]
+    pairs = [(a, b.cpu()) for a, b in zip(runs[0].logits, runs[1].logits)]
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    scale = max(float(a.abs().max()) for a, _ in pairs)
+    same = torch.equal(runs[0].tokens, runs[1].tokens.cpu())
+    log(f"[lm] twin {tag}: card vs CPU, f32, B {batch}, prompt {prompt}, "
+        f"{steps} decode steps: max |d logits| {err:.3e} (|logits| <= "
+        f"{scale:.3f}), greedy tokens equal: {same}")
+    if not same or not all(torch.allclose(b, a, rtol=LM_TWIN_TOL,
+                                          atol=LM_TWIN_TOL)
+                           for a, b in pairs):
+        raise AssertionError(f"{tag}: the card's logits or tokens differ "
+                             f"from the CPU's")
+
+
+def lm_step_bytes(model, cfg, batch, pos) -> int:
+    """Bytes one decode step at ``pos`` must move at the least: every weight
+    it reads once (all but the embedding table, of which only the batch's
+    rows; the MoE's static-capacity einsum reads every expert), the K/V
+    slots it attends (pos + 1 of each) and the new slot it writes, the
+    Mamba2 states read and written, the f32 logits written."""
+    el = model.embed.element_size()
+    n = sum(p.numel() * p.element_size() for p in model.parameters())
+    if model.lm_head is not None:
+        n -= model.embed.numel() * el - batch * cfg.d_model * el
+    for i in range(cfg.num_layers):
+        if cfg.is_attn_layer(i):
+            n += 2 * batch * (pos + 2) * cfg.num_kv_heads * cfg.head_dim * el
+        else:
+            h = cfg.padded_ssm_heads(1)
+            d_in = h * (cfg.d_inner // cfg.ssm_heads)
+            n += 2 * (batch * d_in * cfg.ssm_state * 4
+                      + batch * (cfg.ssm_conv_width - 1)
+                      * (d_in + 2 * cfg.ssm_state) * el)
+    return n + batch * model.embed.shape[0] * 4
+
+
+def lm_teacher_forced(cfg, model, batch, length, device):
+    """A prefill over ``length`` tokens, and a prefill over ``length`` − 1
+    then one decode step: the two f32 logits (B, V) on the CPU."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+    tokens = serve.make_batch(cfg, batch, length,
+                              torch.Generator().manual_seed(3),
+                              device)["tokens"]
+    prefill = make_prefill_step(cfg, length)
+    full, _ = prefill(model, {"tokens": tokens})
+    _, st = prefill(model, {"tokens": tokens[:, :-1]})
+    step, _ = make_decode_step(cfg)(model, tokens[:, -1:], st)
+    return full.cpu(), step.cpu()
+
+
+def lm_gap(a, ref):
+    """(max |a − ref|, mean |a − ref|, the share outside rtol = atol =
+    2e-2 of ref)."""
+    d = (a - ref).abs()
+    return (float(d.max()), float(d.mean()),
+            float((d > 2e-2 + 2e-2 * ref.abs()).float().mean()))
+
+
+def lm_serve_run(tag, cfg, device, consistency_len, why=""):
+    """One model at full width: weights from a seeded generator on the card,
+    ``serve`` twice (equal tokens, finite logits, the final position), a
+    profile of 10 decode steps and the numbers of the phase's lines; then
+    the teacher-forced check at ``consistency_len`` in bf16 (within
+    LM_TF_BF16_TOL) and on the same weights upcast to f32 (within
+    LM_TF_TOL), and the bf16 decode step against the f32 prefill (as
+    close as the bf16 prefill, LM_BF16_DECODE_RATIO).  Frees its
+    weights."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_mod
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    b, L, gen = LM_SERVE["batch"], LM_SERVE["prompt_len"], LM_SERVE["gen"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = model_mod.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[lm] {tag}: {cfg.arch_id}, {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {sum(p.numel() for p in model.parameters())} params "
+        f"({cfg.param_count()} by the config), {wbytes / 1e9:.2f} GB "
+        f"{cfg.param_dtype}, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s{why}")
+    runs = [serve.serve(cfg, batch=b, prompt_len=L, gen=gen, seed=0,
+                        device=device, model=model) for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated()
+    res = runs[1]
+    finite = all(bool(torch.isfinite(lg).all()) for r in runs
+                 for lg in r.logits)
+    same = torch.equal(runs[0].tokens, runs[1].tokens)
+    bits = all(torch.equal(x, y) for x, y in zip(runs[0].logits,
+                                                 runs[1].logits))
+    steps = res.decode_ms
+    p50 = statistics.median(steps)
+    p99 = statistics.quantiles(steps, n=100)[98]
+    pos_end = L + gen - 1
+    log(f"[lm] {tag}: serve B {b}, prompt {L}, gen {gen}: prefill "
+        f"{res.prefill_ms:.2f} ms ({b * L / res.prefill_ms * 1e3:.0f} tok/s; "
+        f"first run {runs[0].prefill_ms:.2f} ms), decode {len(steps)} steps "
+        f"p50 {p50:.3f} ms, p99 {p99:.3f} ms, "
+        f"{b * len(steps) / sum(steps) * 1e3:.0f} tok/s aggregate (first run "
+        f"p50 {statistics.median(runs[0].decode_ms):.3f} ms); logits finite "
+        f"{finite}, final pos {res.pos} (prompt + gen - 1 = {pos_end}), "
+        f"tokens equal over two runs {same}, logits bit-equal {bits}")
+    if not finite or res.pos != pos_end or not same:
+        raise AssertionError(f"{tag}: serve gates failed")
+    del runs, res
+
+    p0 = L + gen // 2
+    logits, state = make_prefill_step(cfg, L + gen)(
+        model, serve.make_batch(cfg, b, L, torch.Generator().manual_seed(1),
+                                device))
+    tok = torch.argmax(logits, -1)[:, None]
+    decode = make_decode_step(cfg)
+
+    def decode_at_p0():
+        state["pos"] = p0
+        decode(model, tok, state)
+    wall, busy_ms, kernels = profile_steps(
+        f"LM {tag} decode step (B {b}, pos {p0})", decode_at_p0,
+        LM_PROFILE_STEPS, "step")
+    nbytes = lm_step_bytes(model, cfg, b, p0)
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    log(f"[lm] {tag}: decode step bound {nbytes / 1e9:.3f} GB at "
+        f"{H100_BYTES_PER_S / 1e12:.2f} TB/s = {bound_ms:.3f} ms (p50 "
+        f"{p50:.3f} ms, {bound_ms / p50:.1%} of it); {kernels:.0f} kernel "
+        f"launches a step, device busy {busy_ms:.3f} ms a step "
+        f"({busy_ms / wall / 1e3:.1%} of the unprofiled wall); peak device "
+        f"memory serving {peak / 2**30:.2f} GiB, weights "
+        f"{wbytes / 2**30:.2f} GiB")
+    del logits, state
+
+    full16, step16 = lm_teacher_forced(cfg, model, b, consistency_len,
+                                       device)
+    model = model.float()
+    full32, step32 = lm_teacher_forced(
+        dataclasses.replace(cfg, param_dtype="float32",
+                            compute_dtype="float32"),
+        model, b, consistency_len, device)
+    scale = max(1.0, float(full32.abs().max()))
+    gaps = {"bf16": lm_gap(step16, full16), "f32": lm_gap(step32, full32)}
+    for name, (dmax, dmean, outside) in gaps.items():
+        log(f"[lm] {tag}: teacher-forced prefill {consistency_len - 1} + 1 "
+            f"step vs prefill {consistency_len}, {name}: max |d logits| "
+            f"{dmax:.3e}, mean {dmean:.3e} (|logits| <= {scale:.3f}); "
+            f"outside rtol = atol = 2e-2: {outside:.2%}")
+    err_full, err_step = lm_gap(full16, full32)[1], lm_gap(step16, full32)[1]
+    log(f"[lm] {tag}: bf16 against the f32 prefill on the same weights, "
+        f"mean |d logits|: prefill {err_full:.3e}, decode step "
+        f"{err_step:.3e} (ratio {err_step / max(err_full, 1e-30):.3f})")
+    if gaps["f32"][0] > LM_TF_TOL * scale:
+        raise AssertionError(f"{tag}: decode disagrees with prefill in f32")
+    if gaps["bf16"][0] > LM_TF_BF16_TOL * scale \
+            or gaps["bf16"][1] > LM_TF_BF16_TOL:
+        raise AssertionError(f"{tag}: decode disagrees with prefill in bf16")
+    if err_step > LM_BF16_DECODE_RATIO * err_full:
+        raise AssertionError(f"{tag}: the bf16 decode step is further from "
+                             f"f32 than the bf16 prefill")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm(device):
+    """The LM stack's serving path: the twin check (every SMOKE config and
+    llama3.2-3b at full width, depth 2, card against CPU in f32), then L1
+    (llama3.2-3b, all of it) and L2 (jamba-v0.1-52b at full width, one
+    superblock) through ``serve`` at B 8, prompt 512, gen 32."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    t0 = time.perf_counter()
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        lm_twin(arch + " SMOKE", cfg, 2, 32, 4, device)
+    llama = get_config("llama3.2-3b")
+    lm_twin("llama3.2-3b at full width, depth 2",
+            dataclasses.replace(llama, num_layers=2, param_dtype="float32",
+                                compute_dtype="float32"), 2, 16, 4, device)
+    log(f"[lm] twin checks {time.perf_counter() - t0:.1f} s")
+    lm_serve_run("L1", llama, device, LM_SERVE["prompt_len"])
+    jamba = get_config("jamba-v0.1-52b")
+    l2 = dataclasses.replace(jamba, num_layers=jamba.superblock_period())
+    lm_serve_run("L2", l2, device, 256, why=(
+        f"; depth cut {jamba.num_layers} -> {l2.num_layers} layers (one "
+        f"superblock: 1 attention + 7 Mamba2, 4 MoE + 4 MLP): all "
+        f"{jamba.param_count() / 1e9:.1f}e9 params in bf16 are "
+        f"{2 * jamba.param_count() / 1e9:.0f} GB, over the card's 80 GB"))
+    log(f"[lm] phase {time.perf_counter() - t0:.1f} s")
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2990,6 +3235,7 @@ def main(argv=None) -> int:
     phase_mesh(device, pts, pts_np, spec, ref_a)
     del pts, pts_np
     phase_parity(cfg, device, peak, args.points)
+    phase_lm(device)
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
     kernels = [k1, k2, k3, k4, k5a, k5b, k6, k7, k8]
     for k in kernels:

@@ -11,7 +11,8 @@ reference bit for bit, it makes the reference's draws with JAX, hands
 them over as numpy, and these functions turn them into the port's
 types.
 :func:`ingest_state_from_numpy` does the same for a streaming fold's
-state, so the port can finish a stream the reference began.
+state, so the port can finish a stream the reference began, and
+:func:`lm_params_from_numpy` for the LM stack's weights.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ from repro_torch.core.hashing import MulShiftParams
 from repro_torch.core.pipeline import Draws
 from repro_torch.core.sketch import CountSketch
 from repro_torch.core.stream import IngestState
+from repro_torch.models import model as model_mod
+from repro_torch.models.config import ModelConfig
 
 
 def hash_params_from_numpy(a1_hi, a1_lo, a2_hi, a2_lo, b_hi, b_lo,
@@ -99,3 +102,62 @@ def ingest_state_from_numpy(state, device="cpu") -> IngestState:
                          count=t(c.count, np.float32), mask=t(c.mask, bool)),
         count=t(state.count, np.float32),
         evict_max=t(state.evict_max, np.float32))
+
+
+def tensor_from_numpy(a) -> torch.Tensor:
+    """A numpy (or JAX) array -> a CPU tensor of a copy; bf16
+    (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) through
+    its 16 bits, losslessly."""
+    a = np.array(a)                     # a writable, contiguous copy
+    return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+        if a.dtype.name == "bfloat16" else torch.from_numpy(a)
+
+
+def _weight(leaf, like: torch.Tensor) -> torch.Tensor:
+    """One numpy leaf -> a tensor of ``like``'s shape and dtype."""
+    t = tensor_from_numpy(leaf)
+    if tuple(t.shape) != tuple(like.shape) or t.dtype != like.dtype:
+        raise ValueError(f"weight {tuple(t.shape)} {t.dtype} does not fit "
+                         f"{tuple(like.shape)} {like.dtype}")
+    return t
+
+
+@torch.no_grad()
+def _load(module: torch.nn.Module, fields, s: Optional[int] = None) -> None:
+    """Copy each of ``module``'s own parameters from the field (or dict key)
+    of the same name in ``fields``, taking superblock ``s`` of a stacked
+    leaf."""
+    for name, param in module.named_parameters(recurse=False):
+        leaf = fields[name] if isinstance(fields, dict) \
+            else getattr(fields, name)
+        param.copy_(_weight(leaf if s is None else leaf[s], param))
+
+
+def _load_block(block: torch.nn.Module, sub, s: int) -> None:
+    """A layer (or cross-attention insert) and each of its sub-modules
+    (``attn``, ``ssm``, ``moe``, ``mlp``) from superblock ``s`` of the
+    stacked ``sub`` dict."""
+    _load(block, sub, s)
+    for name, child in block.named_children():
+        _load(child, sub[name], s)
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree, device="cpu", tp: int = 1
+                         ) -> model_mod.LM:
+    """The reference's ``init_params(key, cfg, tp)`` pytree, its leaves as
+    numpy (``jax.tree.map(np.asarray, params)``) -> the port's model on
+    ``device``.  ``blocks/sub{j}`` (and ``cross{j}``) are stacked over
+    superblocks: superblock s's sub-layer j is layer ``s·period + j``.  The
+    ``AttnParams``, ``MlpParams``, ``MoeParams`` and ``SsmParams`` fields
+    map one to one onto the modules' parameters of the same names."""
+    model = model_mod.LM(cfg, tp, device)
+    period = cfg.superblock_period()
+    _load(model, {k: v for k, v in tree.items() if k != "blocks"})
+    for i, blk in enumerate(model.layers):
+        s, j = divmod(i, period)
+        _load_block(blk, tree["blocks"][f"sub{j}"], s)
+        if model.cross is not None:
+            _load_block(model.cross[i], tree["blocks"][f"cross{j}"], s)
+    for i, blk in enumerate(model.enc_layers or ()):
+        _load_block(blk, tree["enc_blocks"]["sub0"], i)
+    return model

@@ -78,10 +78,11 @@ def total_order(x: torch.Tensor) -> torch.Tensor:
 
 
 def topk_desc(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``lax.top_k(score, k)`` on a float32 vector: the k largest in total
-    order, lower index first among ties."""
-    idx = torch.sort(total_order(score), descending=True, stable=True)[1][:k]
-    return score[idx], idx
+    """``lax.top_k(score, k)`` along the last dim of float32 ``score``: the
+    k largest in total order, lower index first among ties."""
+    idx = torch.sort(total_order(score), dim=-1, descending=True,
+                     stable=True)[1][..., :k]
+    return torch.gather(score, -1, idx), idx
 
 
 def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,0 +1,1 @@
+"""Launchers of the LM stack (the port of ``repro.launch``; serving half)."""
