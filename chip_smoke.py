@@ -171,7 +171,38 @@ Phases, each failing the run (non-zero exit) if it fails:
                  within LM_TF_BF16_TOL (max, relative to the logits'
                  scale, and mean), on the same weights in f32 within
                  LM_TF_TOL, and the bf16 decode step as close to the f32
-                 prefill as the bf16 prefill (LM_BF16_DECODE_RATIO).
+                 prefill as the bf16 prefill (LM_BF16_DECODE_RATIO);
+15. train      — the LM stack's training path: the twin check, every SMOKE
+                 config in f32 (TF32 off) on the card and the CPU from
+                 the same weights: the loss within TRAIN_TWIN_LOSS_TOL
+                 relative and each gradient leaf within
+                 TRAIN_TWIN_GRAD_TOL·max|g_leaf|, then one
+                 ``make_train_step`` under AdamW and one under Adafactor
+                 (weights within 1e-3·lr where |g| > TRAIN_TWIN_SURE·
+                 max|g|, 2·lr elsewhere; optimizer statistics within
+                 TRAIN_TWIN_GRAD_TOL·max|leaf|), and llama3.2-3b at full
+                 width, depth 2, B 1 x S 256 (loss and gradients); T1,
+                 llama3.2-3b whole (bf16, AdamW, remat, B 4 x S 2048 zipf
+                 tokens, 6 steps, twice): finite, falling, the same loss
+                 bits twice; prints step ms (p50), tokens/s, the 6·N·T
+                 share of the bf16 peak, a profiled step, the AdamW
+                 update against its bytes bound, peak memory; T2,
+                 mamba2-130m whole through ``Trainer`` (Adafactor, B 8 x
+                 S 2048, checkpoints every 4, the activation monitor): a
+                 fault before step 10, the restart at 8, and the step-12
+                 loss, weights and optimizer state equal to an
+                 uninterrupted run's bit for bit, heavy hitters found,
+                 K7 = one an observe, K8 = one a report; T3,
+                 tinyllama-1.1b whole with Count-Sketch gradients (R 8,
+                 C 2^20, top_k 10 000, momentum 0.9) then AdamW, B 4 x
+                 S 2048, 3 steps: K7 = K8 = ceil(n / TENSOR_CHUNK) a
+                 step, the kept count top_k plus the ties at the
+                 threshold, the sent values and the new error exactly
+                 the corrected gradient's on and off the kept set (the
+                 error-feedback identity), step 1's K7 table within
+                 1e-5·max|table| of the float64 plain version and K8's
+                 values equal to its plain version; K7 and K8 timed at
+                 T3's chunk (``per_call.train`` of the kernels line).
 
 Prints the nvidia-smi name/power-limit line, then one
 ``{"kernels": [...]}`` line (nine entries: K1-K4, K5a, K5b, K6-K8), then ``{"ok": true, "device": ...}`` last.
@@ -184,6 +215,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2795,7 +2827,7 @@ def phase_sketch_kernels(device, pts, cfg, state, runs):
     r, l2c, step = hp.rows, cfg.log2_cols, cfg.ingest_chunk
     chunk = pts[:step].contiguous()
     check_hash_points(hp, grid, chunk, l2c)
-    k6 = timings({"ms": lambda: hp_mod.hash_points_cuda(hp, grid, chunk, l2c),
+    k6 = timings({"ms": lambda: hp_mod.hash_points(hp, grid, chunk, l2c),
                   "plain_ms": lambda: hp_mod.hash_points_torch(hp, grid, chunk,
                                                                l2c),
                   "library_ms": None}, 100)
@@ -2804,7 +2836,8 @@ def phase_sketch_kernels(device, pts, cfg, state, runs):
     k6["bound_ms"], k6["bound_by"] = op_bound_ms(nbytes)
     k6["max_abs_err"] = 0.0
     log_row("hash_points", k6, f"; one chunk N {step}, D {d}, R {r}: "
-            f"{nbytes / 1e6:.2f} MB; bit-exact; no library call computes it")
+            f"{nbytes / 1e6:.2f} MB; bit-exact; no library call computes it; "
+            f"through the main path's call; timed by {k6['timed_by']}")
 
     key_hi, key_lo = quantize.points_to_keys(grid, chunk)
     chunk_runs = candidates.sorted_runs(
@@ -2894,7 +2927,7 @@ def phase_sketch_kernels(device, pts, cfg, state, runs):
     k8["max_abs_err"] = 0.0
     log_row("sketch_estimate_table", k8, f"; R {r}, Q {q}, C 2^{l2c}: "
             f"{nbytes / 1e6:.2f} MB; bit-exact; library = torch.gather "
-            f"times the signs")
+            f"times the signs; timed by {k8['timed_by']}")
 
     def entry(name, row, line, path):
         return dict({"name": name, "route": "cuda",
@@ -3177,6 +3210,563 @@ def phase_lm(device):
     log(f"[lm] phase {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------------ train
+TRAIN_TWIN_LR = 1e-2                # train: the twin check's peak rate
+TRAIN_TWIN_LOSS_TOL = 1e-5          # card vs CPU, f32, TF32 off: relative
+TRAIN_TWIN_GRAD_TOL = 1e-4          # ... each leaf, relative to max|g_leaf|
+# ... a step's weights are held within 1e-3·lr where |g| > this share of
+# max|g_leaf|: a first step is lr·g/(|g| + eps) of either optimizer, whose
+# sign and size are noise where |g| is near the gradient bar or eps
+TRAIN_TWIN_SURE = 1e-2
+# T1 runs the first six steps of a run on the stack's default schedule
+# (TrainStepConfig: peak 3e-4, 100 warm-up steps, 10 000 in all).  At
+# peak 3e-4 with one warm-up step the loss rose 12.49 -> 17.76 on an
+# H100, and the reference's rises alike (tests/witness_lm_train_rate.py)
+TRAIN_T1 = dict(batch=4, seq=2048, steps=6, q_chunk=1024)
+TRAIN_T2 = dict(batch=8, seq=2048, steps=12, ckpt_every=4, fault_at=10,
+                timed=5)
+TRAIN_T3 = dict(batch=4, seq=2048, steps=3, rows=8, log2_cols=20,
+                top_k=10_000, momentum=0.9)
+H100_BF16_PER_S = 989e12            # H100 SXM dense bf16, NVIDIA data sheet
+
+
+def train_batch(cfg, batch, seq, key_seed, device):
+    """Zipf tokens from ``prng.key(key_seed)`` and, by family, stub patch or
+    frame embeddings from a CPU generator, on ``device``."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.data.synthetic import zipf_token_stream
+    out = zipf_token_stream(prng.key(key_seed, device), batch, seq,
+                            cfg.vocab_size)
+    gen = torch.Generator().manual_seed(key_seed)
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = (0.02 * torch.randn(
+            (batch, cfg.num_prefix, cfg.d_model), generator=gen)
+        ).to(device, cfg.pdtype)
+    if cfg.encoder_layers:
+        out["src_embeds"] = (0.02 * torch.randn(
+            (batch, seq, cfg.d_model), generator=gen)).to(device, cfg.pdtype)
+    return out
+
+
+def _grads_of(cfg, model, batch, q_chunk):
+    model.requires_grad_(True)
+    model.zero_grad(set_to_none=True)
+    from repro_torch.models import model as model_mod
+    total, _ = model_mod.forward_train(cfg, model, batch, q_chunk=q_chunk)
+    total.backward()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(total.detach()), grads
+
+
+def train_twin(tag, cfg, batch, seq, device, with_step):
+    """The same weights (drawn on the CPU) and batch on the CPU and on the
+    card, f32, TF32 off: the loss within TRAIN_TWIN_LOSS_TOL relative and
+    each gradient leaf within TRAIN_TWIN_GRAD_TOL·max|g_leaf|; with
+    ``with_step``, one full train step under AdamW and one under
+    Adafactor: the updated weights within 1e-3·lr where |g| exceeds
+    TRAIN_TWIN_SURE·max|g_leaf|, and within 2·lr everywhere (a first step
+    of either optimizer is about lr·sign(g)), and the optimizer
+    statistics within TRAIN_TWIN_GRAD_TOL·max|leaf|.  Returns the worst
+    ratios."""
+    import copy
+    import torch
+    from repro_torch.models import model as model_mod
+    from repro_torch.train import steps
+
+    base = model_mod.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    b_cpu = train_batch(cfg, batch, seq, 0, "cpu")
+    q_chunk = 1024
+    runs = {}
+    for dev in ("cpu", device):
+        model = copy.deepcopy(base).to(dev)
+        runs[dev] = _grads_of(cfg, model, {k: v.to(dev) for k, v in
+                                           b_cpu.items()}, q_chunk)
+        del model
+    (l_cpu, g_cpu), (l_dev, g_dev) = runs["cpu"], runs[device]
+    loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
+    errs = {n: float((g_dev[n] - g).abs().max())
+            / max(float(g.abs().max()), 1e-30) for n, g in g_cpu.items()}
+    worst_leaf = max(errs, key=errs.get)
+    grad_err = errs[worst_leaf]
+    log(f"[train] twin {tag}: card vs CPU, f32, B {batch} x S {seq}: loss "
+        f"{l_cpu:.6f}, |d loss|/loss {loss_err:.3e}, max |d g|/max|g| over "
+        f"leaves {grad_err:.3e} ({worst_leaf})")
+    if loss_err > TRAIN_TWIN_LOSS_TOL or grad_err > TRAIN_TWIN_GRAD_TOL:
+        raise AssertionError(f"[train] twin {tag}: the card's loss or "
+                             f"gradients differ from the CPU's")
+    worst = {"loss": loss_err, "grad": grad_err}
+    if with_step:
+        for opt in ("adamw", "adafactor"):
+            tcfg = steps.TrainStepConfig(optimizer=opt, peak_lr=TRAIN_TWIN_LR,
+                                         warmup_steps=1, total_steps=2,
+                                         q_chunk=q_chunk)
+            after = {}
+            for dev in ("cpu", device):
+                model = copy.deepcopy(base).to(dev).requires_grad_(True)
+                st = {"model": model, "opt": steps.init_optimizer(
+                    cfg, tcfg, model), "step": 0}
+                st, _ = steps.make_train_step(cfg, tcfg)(
+                    st, {k: v.to(dev) for k, v in b_cpu.items()})
+                stats = st["opt"][1:3]
+                after[dev] = (
+                    {n: p.detach().cpu() for n, p in model.named_parameters()},
+                    [{n: t.cpu() for n, t in d.items()} for d in stats])
+            (p_cpu, s_cpu), (p_dev, s_dev) = after["cpu"], after[device]
+            for n, p in p_cpu.items():
+                d = (p_dev[n] - p).abs()
+                g = g_cpu[n].abs()
+                sure = g > TRAIN_TWIN_SURE * float(g.max())
+                if bool((d[sure] > 1e-3 * TRAIN_TWIN_LR).any()) \
+                        or float(d.max()) > 2 * TRAIN_TWIN_LR:
+                    raise AssertionError(
+                        f"[train] twin {tag} {opt}: weight {n} differs: "
+                        f"max {float(d.max()):.3e}, where |g| is above the "
+                        f"bar {float(d[sure].max()):.3e} (lr "
+                        f"{TRAIN_TWIN_LR})")
+            st_err = max(float((b[n] - a[n]).abs().max())
+                         / max(float(a[n].abs().max()), 1e-30)
+                         for a, b in zip(s_cpu, s_dev) for n in a)
+            worst[opt + "_state"] = st_err
+            if st_err > TRAIN_TWIN_GRAD_TOL:
+                raise AssertionError(f"[train] twin {tag} {opt}: optimizer "
+                                     f"state differs ({st_err:.3e})")
+    if with_step:
+        log(f"[train] twin {tag}: one step each, weights held, optimizer "
+            f"statistics max |d|/max|leaf|: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in worst.items()
+                if k.endswith("_state")))
+    return worst
+
+
+def train_t1(device):
+    """T1: llama3.2-3b whole (bf16, AdamW, remat "nothing"), B 4 x S 2048
+    zipf tokens, 6 steps, twice from the same seed: finite, falling,
+    equal loss bits; step time, tokens/s, the 6·N·tokens share of the
+    bf16 peak, a profiled step, the AdamW update against its bytes
+    bound, peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.train import steps
+
+    cfg = get_config("llama3.2-3b")
+    b, seq, n_steps = TRAIN_T1["batch"], TRAIN_T1["seq"], TRAIN_T1["steps"]
+    tcfg = steps.TrainStepConfig(optimizer="adamw",
+                                 q_chunk=TRAIN_T1["q_chunk"], remat=True,
+                                 remat_policy="nothing")
+    batches = [train_batch(cfg, b, seq, 1000 + i, device)
+               for i in range(n_steps)]
+    step_fn = steps.make_train_step(cfg, tcfg)
+
+    def one_run():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st = steps.init_train_state(
+            cfg, tcfg, torch.Generator(device=device).manual_seed(0),
+            device=device)
+        losses, ms = [], []
+        for batch in batches:
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            st, m = step_fn(st, batch)
+            e1.record()
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        return st, losses, ms, torch.cuda.max_memory_allocated()
+
+    st, losses1, ms1, peak1 = one_run()
+    del st
+    st, losses2, ms2, peak2 = one_run()
+    n_params = sum(p.numel() for p in st["model"].parameters())
+    p50 = statistics.median(ms2[1:])
+    tokens = b * seq
+    share = 6 * n_params * tokens / (p50 * 1e-3 * H100_BF16_PER_S)
+    finite = all(math.isfinite(v) for v in losses1 + losses2)
+    log(f"[train] T1 llama3.2-3b: {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {n_params} params bf16, AdamW (peak "
+        f"{tcfg.peak_lr}, {tcfg.warmup_steps} warm-up steps of "
+        f"{tcfg.total_steps}), remat nothing, B "
+        f"{b} x S {seq} ({tokens} tokens a step), {n_steps} steps: losses "
+        f"{[round(v, 5) for v in losses2]}; step ms {[round(v, 2) for v in ms2]}"
+        f" (run 1 {[round(v, 2) for v in ms1]}); p50 over steps 2-{n_steps} "
+        f"{p50:.2f} ms, {tokens / p50 * 1e3:.0f} tokens/s, 6*N*tokens / "
+        f"(step x {H100_BF16_PER_S / 1e12:.0f} TFLOP/s bf16) = {share:.1%}; "
+        f"peak device memory {peak2 / 2**30:.2f} GiB (run 1 "
+        f"{peak1 / 2**30:.2f}); finite {finite}, falling "
+        f"{losses2[-1] < losses2[0]}, equal loss bits over two runs "
+        f"{losses1 == losses2}")
+    if not finite or not losses2[-1] < losses2[0] or losses1 != losses2:
+        raise AssertionError("[train] T1: loss gates failed")
+    holder = [st]
+
+    def step_once():
+        holder[0], _ = step_fn(holder[0], batches[0])
+    wall, busy_ms, kernels = profile_steps("train T1 step", step_once, 1,
+                                           "step")
+    log(f"[train] T1: a step {kernels:.0f} kernel launches, device busy "
+        f"{busy_ms:.2f} ms ({busy_ms / wall / 1e3:.1%} of the unprofiled "
+        f"wall {wall * 1e3:.2f} ms)")
+    st = holder[0]
+    params = dict(st["model"].named_parameters())
+    grads = {n: torch.full_like(p, 1e-3) for n, p in params.items()}
+    ocfg = AdamWConfig(lr=1e-6)
+    upd_ms = time_cuda(lambda: adamw_update(grads, st["opt"], params, ocfg),
+                       3, warmup=1)
+    nbytes = sum(p.numel() * (2 * p.element_size() + grads[n].element_size()
+                              + 16) for n, p in params.items())
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    log(f"[train] T1: AdamW update {upd_ms:.2f} ms (CUDA events, 3 calls) "
+        f"against its bytes bound {nbytes / 1e9:.2f} GB (params read and "
+        f"written, grads read, f32 m and v read and written) at "
+        f"{H100_BYTES_PER_S / 1e12:.2f} TB/s = {bound:.2f} ms "
+        f"({bound / upd_ms:.1%})")
+    del st, holder, params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class _Fault(RuntimeError):
+    pass
+
+
+def train_t2(device):
+    """T2: mamba2-130m whole through ``Trainer`` (Adafactor, B 8 x S 2048,
+    checkpoints every 4 steps, the activation monitor): a fault before
+    step 10, the restart from step 8, an uninterrupted 12-step run; the
+    step-12 loss, weights and optimizer state equal bit for bit; the
+    monitor's heavy hitters found, K7 once an observe, K8 once a
+    report."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.train import steps
+    from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                           load_state_tree, state_tree)
+
+    cfg = get_config("mamba2-130m")
+    b, seq, n_steps = TRAIN_T2["batch"], TRAIN_T2["seq"], TRAIN_T2["steps"]
+    every, fault_at = TRAIN_T2["ckpt_every"], TRAIN_T2["fault_at"]
+    tcfg = steps.TrainStepConfig(optimizer="adafactor", peak_lr=1e-3,
+                                 warmup_steps=2, total_steps=n_steps)
+
+    def batch_fn(step):
+        return train_batch(cfg, b, seq, 2000 + step, device)
+
+    def bomb(step):
+        if step == fault_at:
+            raise _Fault(step)
+
+    def observes(start, stop):
+        return sum(1 for s in range(start + 1, stop + 1) if s % every == 0)
+
+    k7, k8 = "sketch_update_table", "sketch_estimate_table"
+    with tempfile.TemporaryDirectory() as tmp:
+        def rc(name, ckpt_every):
+            return TrainerConfig(total_steps=n_steps, ckpt_every=ckpt_every,
+                                 ckpt_dir=f"{tmp}/{name}", log_every=every,
+                                 monitor_activations=True)
+
+        def faulted():
+            try:
+                Trainer(cfg, tcfg, rc("run", every), batch_fn, bomb,
+                        device=device).run()
+            except _Fault:
+                return True
+            return False
+        died, _ = counted("T2:fault", {k7: observes(0, fault_at)}, faulted)
+        t0 = time.perf_counter()
+        tr_b = Trainer(cfg, tcfg, rc("run", every), batch_fn, device=device)
+        torch.cuda.synchronize()
+        t_resume = time.perf_counter() - t0
+        start = tr_b.start_step
+        out_b, _ = counted("T2:resume", {k7: observes(start, n_steps),
+                                         k8: 1}, tr_b.run)
+        torch.cuda.reset_peak_memory_stats()
+        tr_c = Trainer(cfg, tcfg, rc("oracle", n_steps), batch_fn,
+                       device=device)
+        out_c, wall_c = counted("T2:oracle", {k7: observes(0, n_steps),
+                                              k8: 1}, tr_c.run)
+        peak_c = torch.cuda.max_memory_allocated()
+        loss_b = [m for m in out_b["metrics"] if m["step"] == n_steps][0]
+        loss_c = [m for m in out_c["metrics"] if m["step"] == n_steps][0]
+        tb, tc = state_tree(tr_b.state), state_tree(tr_c.state)
+        same_params = all(torch.equal(tb["params"][n], t)
+                          for n, t in tc["params"].items())
+        same_opt = all(torch.equal(tb["opt"][f][n], t)
+                       for f in (1, 2) for n, t in tc["opt"][f].items())
+        rep_b, rep_c = out_b["activation_report"], out_c["activation_report"]
+        # step time and checkpoint costs, after the gates
+        st = tr_c.state
+        ms = []
+        for i in range(TRAIN_T2["timed"]):
+            batch = batch_fn(i)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            st, _ = tr_c.step_fn(st, batch)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        holder = [st]
+
+        def step_once():
+            holder[0], _ = tr_c.step_fn(holder[0], batch_fn(0))
+        wall, busy_ms, kernels = profile_steps("train T2 step", step_once, 1,
+                                               "step")
+        st = holder[0]
+        t0 = time.perf_counter()
+        save_checkpoint(f"{tmp}/timed", n_steps, state_tree(st))
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st = load_state_tree(st, restore_checkpoint(f"{tmp}/timed", n_steps,
+                                                    state_tree(st)))
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    p50 = statistics.median(ms)
+    n_params = sum(p.numel() for p in st["model"].parameters())
+    log(f"[train] T2 mamba2-130m via Trainer: {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {n_params} params {cfg.param_dtype}, Adafactor, B "
+        f"{b} x S {seq}, checkpoints every {every}: fault before step "
+        f"{fault_at} raised {died}, restart at step {start} (Trainer built "
+        f"and restored in {t_resume:.2f} s), step-{n_steps} loss "
+        f"{loss_b['loss']!r} resumed vs {loss_c['loss']!r} uninterrupted, "
+        f"weights equal {same_params}, optimizer state equal {same_opt}; "
+        f"uninterrupted run {wall_c:.2f} s, peak device memory "
+        f"{peak_c / 2**30:.2f} GiB; step p50 {p50:.2f} ms ({ms}), "
+        f"{b * seq / p50 * 1e3:.0f} tokens/s; a profiled step {kernels:.0f} "
+        f"kernel launches, device busy {busy_ms:.2f} ms ({busy_ms / wall / 1e3:.1%}"
+        f" of the unprofiled wall {wall * 1e3:.2f} ms); checkpoint save "
+        f"{t_save:.3f} s, restore {t_restore:.3f} s; monitor: hh_count "
+        f"{rep_c['hh_count']} (resumed {rep_b['hh_count']}), top1 share "
+        f"{rep_c['hh_top1_frac']:.4f}, tokens seen {rep_c['tokens_seen']}; "
+        f"launches {PATH_LAUNCHES['T2:fault']}, "
+        f"{PATH_LAUNCHES['T2:resume']}, {PATH_LAUNCHES['T2:oracle']}")
+    if not (died and start == fault_at - fault_at % every
+            and loss_b["loss"] == loss_c["loss"] and same_params
+            and same_opt and rep_b["hh_count"] > 0 and rep_c["hh_count"] > 0):
+        raise AssertionError("[train] T2: resume or monitor gates failed")
+    del tr_b, tr_c, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_t3(device):
+    """T3: tinyllama-1.1b whole (bf16) with Count-Sketch compressed
+    gradients (R 8, C 2^20, top_k 10 000, momentum 0.9), then AdamW, B 4 x
+    S 2048, 3 steps.  Returns the K7 and K8 rows at these shapes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import hashing, sketch
+    from repro_torch.kernels import sketch_estimate as se
+    from repro_torch.kernels import sketch_update as su
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim import sketch_compress as sc
+
+    cfg = get_config("tinyllama-1.1b")
+    b, seq, n_steps = TRAIN_T3["batch"], TRAIN_T3["seq"], TRAIN_T3["steps"]
+    ccfg = sc.SketchCompressConfig(rows=TRAIN_T3["rows"],
+                                   log2_cols=TRAIN_T3["log2_cols"],
+                                   top_k=TRAIN_T3["top_k"],
+                                   momentum=TRAIN_T3["momentum"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = model_mod.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    cstate = sc.sketch_compress_init(params, ccfg)
+    ostate, ocfg = adamw_init(params), AdamWConfig(lr=3e-4)
+    n = cstate.error.numel()
+    chunk = sketch.TENSOR_CHUNK
+    n_chunks = -(-n // chunk)
+    k7, k8 = "sketch_update_table", "sketch_estimate_table"
+    rows = None
+    for step in range(n_steps):
+        batch = train_batch(cfg, b, seq, 3000 + step, device)
+        model.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        total, _ = model_mod.forward_train(cfg, model, batch)
+        total.backward()
+        torch.cuda.synchronize()
+        t_grad = time.perf_counter() - t0
+        grads = {nm: p.grad for nm, p in params.items()}
+
+        def compress():
+            t0 = time.perf_counter()
+            sk = sc.local_sketch(grads, cstate, ccfg)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = sc.decompress(sk, grads, cstate, ccfg)
+            torch.cuda.synchronize()
+            return sk, out, t1 - t0, time.perf_counter() - t1
+        prev_err, prev_mom = cstate.error.clone(), cstate.momentum.clone()
+        (sk, (upd, cstate, density), t_sk, t_dec), _ = counted(
+            f"T3:{step + 1}", {k7: n_chunks, k8: n_chunks}, compress)
+        # what decompress had to find: the merged sketch's estimate (K8,
+        # outside the counted run; the same bits), momentum, then corrected
+        t0 = time.perf_counter()
+        est = sketch.tensor_sketch_estimate(sk, n)
+        torch.cuda.synchronize()
+        t_est = time.perf_counter() - t0
+        corrected = prev_mom * ccfg.momentum + est
+        corrected += prev_err
+        del est, prev_err, prev_mom
+        mag = corrected.abs()
+        thresh = float(torch.topk(mag, ccfg.top_k)[0][-1])
+        keep = mag >= max(thresh, 1e-30)
+        kept = int(keep.sum())
+        n_above = int((mag > thresh).sum())
+        n_at = int((mag == thresh).sum())
+        del mag
+        sent = sc._flatten(upd, cstate.sizes)
+        sent_ok = torch.equal(
+            sent, torch.where(keep, corrected, 0.0).to(torch.bfloat16).float())
+        del sent
+        err_ok = torch.equal(cstate.error, torch.where(keep, 0.0, corrected))
+        ef = float((cstate.error + torch.where(keep, corrected, 0.0)
+                    - corrected).abs().max())
+        dens_ok = round(float(density) * n) == kept
+        log(f"[train] T3 step {step + 1}: loss {float(total.detach()):.5f}; "
+            f"grads "
+            f"{t_grad * 1e3:.1f} ms; compression of {n} coordinates in "
+            f"{n_chunks} chunks of {chunk}: sketch {t_sk * 1e3:.1f} ms, "
+            f"decompress {t_dec * 1e3:.1f} ms (the estimate alone "
+            f"{t_est * 1e3:.1f} ms, so top-k and the rest "
+            f"{(t_dec - t_est) * 1e3:.1f} ms); threshold {thresh:.6e}: "
+            f"{n_above} above, {n_at} at it; kept {kept} = top_k "
+            f"{ccfg.top_k} + {kept - ccfg.top_k} ties at the threshold; "
+            f"density {float(density):.4e} (== kept/n: {dens_ok}); sent == "
+            f"corrected on the kept set (bf16) {sent_ok}; error == corrected "
+            f"off it {err_ok}; error-feedback identity max |err + sent - "
+            f"(momentum + prev_err + est)| {ef:.3e}; launches "
+            f"{PATH_LAUNCHES[f'T3:{step + 1}']}")
+        if not (n_above < ccfg.top_k <= kept == n_above + n_at and sent_ok
+                and err_ok and dens_ok and ef == 0.0):
+            raise AssertionError(f"[train] T3 step {step + 1}: the top-k "
+                                 f"selection or error feedback is wrong")
+        if step == 0:
+            rows = t3_kernel_rows(device, sc._flatten(grads, cstate.sizes),
+                                  sk, chunk)
+        del corrected, keep
+        adamw_update(upd, ostate, params, ocfg)
+        del upd, grads
+        model.zero_grad(set_to_none=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train] T3: peak device memory {peak:.2f} GiB (weights, grads, "
+        f"AdamW m and v, error and momentum of {n} coordinates, and the "
+        f"gates' copies)")
+    del model, params, cstate, ostate
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def t3_kernel_rows(device, flat, sk, chunk):
+    """K7's step-1 table against the float64 plain version over all
+    coordinates (within 1e-5·max|table|), K8 on the first chunk against
+    its plain version (bit for bit); then both timed on one chunk of
+    ``chunk`` coordinates against the plain versions, the library calls
+    and the bounds."""
+    import torch
+    from repro_torch.core import hashing
+    from repro_torch.kernels import sketch_estimate as se
+    from repro_torch.kernels import sketch_update as su
+
+    hp, l2c, r = sk.params, sk.log2_cols, sk.rows
+    n = flat.numel()
+    t64 = torch.zeros(sk.table.shape, dtype=torch.float64, device=device)
+    for s in range(0, n, chunk):
+        lo = torch.arange(s, min(n, s + chunk), device=device)
+        su.sketch_update_torch(t64, hp, torch.zeros_like(lo), lo,
+                               flat[s:s + chunk].double())
+    scale = float(t64.abs().max())
+    err7 = float((sk.table.double() - t64).abs().max())
+    lo = torch.arange(chunk, device=device)
+    hi = torch.zeros_like(lo)
+    vals = flat[:chunk].contiguous()
+    qb, qs = hashing.hashes(hp, hi, lo, l2c)
+    qb, qs = qb.contiguous(), qs.contiguous()
+    same8 = torch.equal(se.sketch_estimate_cuda(sk.table, qb, qs),
+                        se.sketch_estimate_torch(sk.table, qb, qs))
+    log(f"[train] T3 K7: step 1's table (R {r}, C 2^{l2c}, {n} weighted "
+        f"coordinates) vs the float64 plain version: max |d| {err7:.3e} "
+        f"(max |table| {scale:.3e}, bar 1e-5 of it); K8 on the first "
+        f"{chunk} coordinates == its plain version bit for bit: {same8}")
+    if err7 > 1e-5 * scale or not same8:
+        raise AssertionError("[train] T3: K7 or K8 disagrees with its plain "
+                             "version")
+    table = torch.zeros_like(sk.table)
+    flat_idx = ((torch.arange(r, device=device) << l2c)[:, None] | qb
+                ).reshape(-1)
+    signed = (qs.float() * vals[None, :]).reshape(-1)
+    k7 = timings({"ms": lambda: su.sketch_update_cuda(table, hp, hi, lo,
+                                                      vals),
+                  "plain_ms": lambda: su.sketch_update_torch(table, hp, hi,
+                                                             lo, vals),
+                  "library_ms": lambda: table.view(-1).index_add_(
+                      0, flat_idx, signed)}, 5)
+    cells = int(torch.unique(flat_idx).numel())
+    nbytes = chunk * (8 + 8 + 4) + cells * 8
+    k7["bound_ms"], k7["bound_by"] = op_bound_ms(nbytes)
+    k7["max_abs_err"] = err7
+    adds = r * chunk
+    log_row("sketch_update_table train (T3 chunk)", k7,
+            f"; {chunk} weighted coordinates, R {r}, C 2^{l2c}, {cells} "
+            f"cells touched: {nbytes / 1e6:.2f} MB; {adds} adds, "
+            f"{adds / (k7['ms'] * 1e-3) / 1e9:.1f}e9 adds/s (the L2's "
+            f"scattered fp32 atomics bound it in practice); timed by "
+            f"{k7['timed_by']}")
+    k8 = timings({"ms": lambda: se.sketch_estimate_cuda(sk.table, qb, qs),
+                  "plain_ms": lambda: se.sketch_estimate_torch(sk.table, qb,
+                                                               qs),
+                  "library_ms": lambda: torch.gather(sk.table, 1, qb) * qs},
+                 5)
+    nbytes = r * chunk * (8 + 8 + 4) + sk.table.numel() * 4
+    k8["bound_ms"], k8["bound_by"] = op_bound_ms(nbytes)
+    k8["max_abs_err"] = 0.0
+    log_row("sketch_estimate_table train (T3 chunk)", k8,
+            f"; R {r}, Q {chunk}, C 2^{l2c}: {nbytes / 1e6:.2f} MB; "
+            f"bit-exact; timed by {k8['timed_by']}")
+    return {"sketch_update_table": k7, "sketch_estimate_table": k8}
+
+
+def phase_train(device):
+    """The LM stack's training path: the twin checks (every SMOKE config
+    one forward/backward and one step under each optimizer; llama3.2-3b
+    at full width, depth 2, B 1 x S 256, loss and gradients), then T1,
+    T2 and T3.  Returns K7's and K8's rows at T3's shapes."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    t0 = time.perf_counter()
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        train_twin(arch + " SMOKE", cfg, 2, 32, device, with_step=True)
+    llama = get_config("llama3.2-3b")
+    train_twin("llama3.2-3b at full width, depth 2",
+               dataclasses.replace(llama, num_layers=2,
+                                   param_dtype="float32",
+                                   compute_dtype="float32"), 1, 256, device,
+               with_step=False)
+    log(f"[train] twin checks {time.perf_counter() - t0:.1f} s")
+    train_t1(device)
+    log(f"[train] T1 done at {time.perf_counter() - t0:.1f} s")
+    train_t2(device)
+    log(f"[train] T2 done at {time.perf_counter() - t0:.1f} s")
+    rows = train_t3(device)
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    return rows
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3236,6 +3826,10 @@ def main(argv=None) -> int:
     del pts, pts_np
     phase_parity(cfg, device, peak, args.points)
     phase_lm(device)
+    train_rows = phase_train(device)
+    for k in (k7, k8):
+        k["per_call"] = dict(k.get("per_call") or {},
+                             train=train_rows[k["name"]])
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
     kernels = [k1, k2, k3, k4, k5a, k5b, k6, k7, k8]
     for k in kernels:

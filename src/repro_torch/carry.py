@@ -11,8 +11,9 @@ reference bit for bit, it makes the reference's draws with JAX, hands
 them over as numpy, and these functions turn them into the port's
 types.
 :func:`ingest_state_from_numpy` does the same for a streaming fold's
-state, so the port can finish a stream the reference began, and
-:func:`lm_params_from_numpy` for the LM stack's weights.
+state, so the port can finish a stream the reference began,
+:func:`lm_params_from_numpy` for the LM stack's weights and
+:func:`train_state_from_numpy` for its train state.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ from repro_torch.core.sketch import CountSketch
 from repro_torch.core.stream import IngestState
 from repro_torch.models import model as model_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim import AdafactorState, AdamWState
+from repro_torch.train.steps import TrainStepConfig, init_optimizer
 
 
 def hash_params_from_numpy(a1_hi, a1_lo, a2_hi, a2_lo, b_hi, b_lo,
@@ -122,24 +125,45 @@ def _weight(leaf, like: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _child(node, key: str):
+    return node[key] if isinstance(node, dict) else getattr(node, key)
+
+
 @torch.no_grad()
 def _load(module: torch.nn.Module, fields, s: Optional[int] = None) -> None:
     """Copy each of ``module``'s own parameters from the field (or dict key)
     of the same name in ``fields``, taking superblock ``s`` of a stacked
-    leaf."""
+    leaf (the layer tests load one module this way)."""
     for name, param in module.named_parameters(recurse=False):
-        leaf = fields[name] if isinstance(fields, dict) \
-            else getattr(fields, name)
+        leaf = _child(fields, name)
         param.copy_(_weight(leaf if s is None else leaf[s], param))
 
 
-def _load_block(block: torch.nn.Module, sub, s: int) -> None:
-    """A layer (or cross-attention insert) and each of its sub-modules
-    (``attn``, ``ssm``, ``moe``, ``mlp``) from superblock ``s`` of the
-    stacked ``sub`` dict."""
-    _load(block, sub, s)
-    for name, child in block.named_children():
-        _load(child, sub[name], s)
+def ref_leaf(cfg: ModelConfig, tree, name: str, like_shape) -> np.ndarray:
+    """The reference leaf of the port's parameter ``name`` in ``tree`` (a
+    params-shaped pytree of numpy leaves): ``layers.{i}.<path>`` is
+    superblock s's slice of ``blocks/sub{j}/<path>`` (i = s·period + j),
+    ``cross.{i}`` of ``blocks/cross{j}``, ``enc_layers.{i}`` of
+    ``enc_blocks/sub0``.  A leaf of ``like_shape``'s rank is not stacked
+    (Adafactor's (1,) column stats of an unfactored leaf) and is taken
+    whole."""
+    parts = name.split(".")
+    s = None
+    if parts[0] in ("layers", "cross", "enc_layers"):
+        i = int(parts[1])
+        if parts[0] == "enc_layers":
+            node, s = tree["enc_blocks"]["sub0"], i
+        else:
+            s, j = divmod(i, cfg.superblock_period())
+            sub = "sub" if parts[0] == "layers" else "cross"
+            node = tree["blocks"][f"{sub}{j}"]
+        parts = parts[2:]
+    else:
+        node = tree
+    for key in parts:
+        node = _child(node, key)
+    leaf = np.asarray(node)
+    return leaf if s is None or leaf.ndim == len(like_shape) else leaf[s]
 
 
 def lm_params_from_numpy(cfg: ModelConfig, tree, device="cpu", tp: int = 1
@@ -151,13 +175,42 @@ def lm_params_from_numpy(cfg: ModelConfig, tree, device="cpu", tp: int = 1
     ``AttnParams``, ``MlpParams``, ``MoeParams`` and ``SsmParams`` fields
     map one to one onto the modules' parameters of the same names."""
     model = model_mod.LM(cfg, tp, device)
-    period = cfg.superblock_period()
-    _load(model, {k: v for k, v in tree.items() if k != "blocks"})
-    for i, blk in enumerate(model.layers):
-        s, j = divmod(i, period)
-        _load_block(blk, tree["blocks"][f"sub{j}"], s)
-        if model.cross is not None:
-            _load_block(model.cross[i], tree["blocks"][f"cross{j}"], s)
-    for i, blk in enumerate(model.enc_layers or ()):
-        _load_block(blk, tree["enc_blocks"]["sub0"], i)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(_weight(ref_leaf(cfg, tree, name, p.shape), p))
     return model
+
+
+def train_state_from_numpy(cfg: ModelConfig, ref_state, device="cpu"):
+    """The reference's ``init_train_state`` (or a later train state), its
+    leaves as numpy, -> the port's train state on ``device``: the model
+    (as :func:`lm_params_from_numpy`), the optimizer's state (AdamW's
+    ``m``/``v``, or Adafactor's ``vr``/``vc``/``factored``, per layer
+    from the reference's stacked leaves) and the step."""
+    model = lm_params_from_numpy(cfg, ref_state["params"], device)
+    model.requires_grad_(True)
+    opt = ref_state["opt"]
+    shapes = {n: p.shape for n, p in model.named_parameters()}
+
+    def stats(tree, like_shapes):
+        return {n: torch.from_numpy(np.array(ref_leaf(cfg, tree, n, shape),
+                                             np.float32)).to(device)
+                for n, shape in like_shapes.items()}
+
+    if hasattr(opt, "m"):
+        state = AdamWState(step=int(opt.step), m=stats(opt.m, shapes),
+                           v=stats(opt.v, shapes))
+    else:
+        zero = init_optimizer(cfg, TrainStepConfig(optimizer="adafactor"),
+                              model)
+        factored = {n: bool(ref_leaf(cfg, opt.factored, n, ()))
+                    for n in shapes}
+        if factored != zero.factored:
+            raise ValueError("the reference factors other leaves than the "
+                             "port")
+        state = AdafactorState(
+            step=int(opt.step),
+            vr=stats(opt.vr, {n: t.shape for n, t in zero.vr.items()}),
+            vc=stats(opt.vc, {n: t.shape for n, t in zero.vc.items()}),
+            factored=factored)
+    return {"model": model, "opt": state, "step": int(ref_state["step"])}

@@ -104,3 +104,112 @@ def uniform(k: Key, shape: Tuple[int, ...], minval: float = 0.0,
     hi = torch.tensor(maxval, dtype=torch.float32, device=u.device)
     span = (hi - lo).double()
     return torch.maximum(lo, (u.double() * span + lo.double()).float())
+
+
+# ---------------------------------------------------------------- normal
+# XLA:CPU's f32 math, as ``jax.random.normal`` reaches it (erf_inv): each
+# step is one f32 rounding, and where LLVM contracts a multiply with the
+# add that is its only use, the pair is one fused multiply-add.  Both are
+# computed here in float64 and rounded once to float32 (a 24 by 24 bit
+# product is exact in float64).
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """Round float64 ``x`` to float32 and back."""
+    return x.float().double()
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    return _f32(a * b + c)
+
+
+def _c(v: float) -> float:
+    """A literal as the f32 constant XLA folds it to."""
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+_LOG_P = tuple(_c(v) for v in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG1P_NUM = tuple(_c(v) for v in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+    6.5787325942061044846969e0, 2.9911919328553073277375e1,
+    6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1))
+_LOG1P_DEN = tuple(_c(v) for v in (
+    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+    2.2176239823732856465394e2, 3.0909872225312059774938e2,
+    2.1642788614495947685003e2, 6.0118660497603843919306e1))
+# Giles' erfinv polynomials, for w < 5 and w >= 5
+_ERFINV_LO = tuple(_c(v) for v in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+    1.50140941))
+_ERFINV_HI = tuple(_c(v) for v in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
+
+
+def _log_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 log of positive normal float32 values x (held in
+    float64): the Cephes polynomial after splitting off the exponent."""
+    bits = x.float().view(torch.int32)
+    e = ((bits >> 23) - 0x7F).double() + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32).double()
+    small = m < _c(0.707106781186547524)
+    e = e - small.double()
+    m = _f32((m - 1.0) + torch.where(small, m, 0.0))
+    m2 = _f32(m * m)
+    m3 = _f32(m2 * m)
+    p = _LOG_P
+    y = _fma(_fma(m, p[0], p[1]), m, p[2])
+    y1 = _fma(_fma(m, p[3], p[4]), m, p[5])
+    y2 = _fma(_fma(m, p[6], p[7]), m, p[8])
+    y = _fma(_fma(y, m3, y1), m3, y2)
+    y = _fma(y, m3, _f32(_c(-2.12194440e-4) * e))
+    t = _f32(_fma(-0.5, m2, m) + y)
+    return _fma(_c(0.693359375), e, t)
+
+
+def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
+    p = torch.zeros_like(x)
+    for c in coeffs:
+        p = _fma(p, x, c)
+    return p
+
+
+def _log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 log1p for x > -1 (float64-held float32): a
+    Cephes rational function below |x| = sqrt(2) - 1, log(1 + x) above."""
+    x2 = _f32(x * x)
+    small = _f32(_horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN))
+    small = _f32(_f32(x * x2) * small)
+    small = _f32(x + _fma(-0.5, x2, small))
+    large = _log_f32(_f32(torch.clamp(x + 1.0, min=2.0 ** -126)))
+    return torch.where(x.abs() < 0.41421356237309504880, small, large)
+
+
+def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.erf_inv`` on float32 as XLA:CPU computes it (Giles'
+    polynomial, float32 roundings and fused multiply-adds as there):
+    ``torch.special.erfinv`` agrees in only a third of the bits."""
+    xd = x.double()
+    w = -_log1p_f32(_f32(-(xd * xd)))
+    lt = w < 5.0
+    w = torch.where(lt, _f32(w - 2.5),
+                    _f32(_f32(torch.sqrt(w.clamp(min=0))) - 3.0))
+    lo = torch.tensor(_ERFINV_LO, dtype=torch.float64, device=x.device)
+    hi = torch.tensor(_ERFINV_HI, dtype=torch.float64, device=x.device)
+    p = torch.where(lt, lo[0], hi[0])
+    for i in range(1, len(_ERFINV_LO)):
+        p = _fma(p, w, torch.where(lt, lo[i], hi[i]))
+    out = _f32(p * xd).float()
+    return torch.where(x.abs() == 1, x * math.inf, out)
+
+
+def normal(k: Key, shape: Tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.normal(k, shape, float32)``: √2 · erfinv(u) of
+    u = ``uniform(k, shape, nextafter(-1, 0), 1)``, bit for bit."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(k, shape, lo, 1.0)
+    return _c(math.sqrt(2.0)) * erfinv_f32(u)

@@ -9,6 +9,7 @@ for bit the reference's (``repro.core.quantize``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -101,14 +102,22 @@ def fit_grid_streaming(chunks, bins: int, pad: float = 1e-3) -> GridSpec:
                     hi=hi + pad * span)
 
 
-def grid_tensors(grid: GridSpec, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The grid's lower corner and bins per unit, (D,) float32 each, as
-    :func:`quantize` and the hash_points kernel use them."""
+@functools.lru_cache(maxsize=64)
+def _grid_tensors(grid: GridSpec, device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     lo = torch.as_tensor(grid.lo_arr, device=device)
     inv = torch.as_tensor(
         np.asarray(grid.bins / (grid.hi_arr - grid.lo_arr), np.float32),
         device=device)
     return lo, inv
+
+
+def grid_tensors(grid: GridSpec, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The grid's lower corner and bins per unit, (D,) float32 each, as
+    :func:`quantize` and the hash_points kernel use them.  Made once per
+    (grid, device) and kept (a spec is frozen), so a call on the card
+    makes no host copy after the first; callers must not write to them."""
+    return _grid_tensors(grid, torch.device(device))
 
 
 def quantize(grid: GridSpec, points: torch.Tensor) -> torch.Tensor:

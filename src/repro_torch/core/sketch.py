@@ -10,6 +10,9 @@ adds, one launch a call) and the gather of :func:`estimate` is K8
 (``kernels/sketch_estimate.py``); CPU tensors take their plain twins
 (``index_add_`` and ``torch.gather``).  Integer counts below 2**24 add to
 the same bits in any order, so tables match the reference's bit for bit.
+Weighted values (:func:`tensor_sketch_update`'s gradient coordinates)
+agree to fp32 rounding only: the kernel's atomics add in a
+schedule-dependent order.
 """
 from __future__ import annotations
 
@@ -158,3 +161,36 @@ def topk_from_candidates(sk: CountSketch, cand_hi: torch.Tensor,
         top_est = torch.cat([top_est, torch.full((pad,), float("-inf"),
                                                  device=shi.device)])
     return hi_out, lo_out, top_est
+
+
+# coordinates a K7 / K8 launch of the dense-vector sketch: the reference
+# sketches the whole vector at once, but at 1.1e9 coordinates the int64
+# key limbs alone would be 17.6 GB and R·n exceeds 2**31
+TENSOR_CHUNK = 1 << 24
+
+
+def tensor_sketch_update(sk: CountSketch, grad_flat: torch.Tensor
+                         ) -> CountSketch:
+    """Sketch a dense vector (gradient compression): coordinate i is the
+    key (hi 0, lo i) with value grad[i].  One K7 launch a chunk of
+    ``TENSOR_CHUNK`` coordinates on the card; returns a new sketch."""
+    table = sk.table.clone()
+    n, chunk = grad_flat.shape[0], TENSOR_CHUNK
+    for s in range(0, n, chunk):
+        lo = torch.arange(s, min(n, s + chunk), dtype=torch.int64,
+                          device=table.device)
+        sketch_update(table, sk.params, torch.zeros_like(lo), lo,
+                      grad_flat[s:s + chunk].to(table.dtype).contiguous())
+    return sk._replace(table=table)
+
+
+def tensor_sketch_estimate(sk: CountSketch, n: int) -> torch.Tensor:
+    """Estimate all n coordinates of a sketched dense vector: (n,) float32,
+    one K8 launch (and a median over rows) a chunk."""
+    out = torch.empty(n, dtype=torch.float32, device=sk.table.device)
+    chunk = TENSOR_CHUNK
+    for s in range(0, n, chunk):
+        lo = torch.arange(s, min(n, s + chunk), dtype=torch.int64,
+                          device=out.device)
+        out[s:s + chunk] = estimate(sk, torch.zeros_like(lo), lo)
+    return out

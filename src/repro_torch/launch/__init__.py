@@ -1,1 +1,2 @@
-"""Launchers of the LM stack (the port of ``repro.launch``; serving half)."""
+"""Launchers of the LM stack (the port of ``repro.launch``): serving and
+training."""

@@ -1,6 +1,6 @@
-"""The unified LM, serving half: parameters, prefill and decode for every
-architecture family (dense, moe, ssm, hybrid, encdec, vlm).  The port of
-``repro.models.model``.
+"""The unified LM: parameters, the training forward (loss and aux losses,
+with remat), prefill and decode for every architecture family (dense,
+moe, ssm, hybrid, encdec, vlm).  The port of ``repro.models.model``.
 
 Where the reference stacks parameters over superblocks (the smallest
 repeating pattern of layer kinds) and scans them, the port keeps one
@@ -10,16 +10,25 @@ superblock s's sub-layer j.  The decode state holds one cache a layer
 an encoder-decoder) and a host-side position; caches are written in
 place.
 
+Serving weights are built with ``requires_grad=False`` and run under
+``inference_mode``; a train step switches them on.  The reference
+checkpoints one superblock at a time (``jax.checkpoint`` over the scanned
+body); :func:`forward_train` checkpoints each superblock's ``period``
+layers and each encoder layer with ``torch.utils.checkpoint``.
+
 All dense compute is in the config's compute dtype with f32
 softmax/norm/router, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
@@ -164,15 +173,42 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, tp: int = 1,
     return model
 
 
+def param_stacks(cfg: ModelConfig, model: LM) -> List[Tuple[str, ...]]:
+    """The names of the weights the reference stacks into one leaf, each
+    group in superblock order: sub-layer j's weight of every superblock
+    (``blocks/sub{j}``, ``blocks/cross{j}``) and each encoder weight over
+    the encoder layers (``enc_blocks/sub0``)."""
+    period = cfg.superblock_period()
+    stacks = []
+    for group, step in (("layers", period), ("cross", period),
+                        ("enc_layers", 1)):
+        mods = getattr(model, group)
+        if mods is None:
+            continue
+        for j in range(step):
+            for rest, _ in mods[j].named_parameters():
+                stacks.append(tuple(f"{group}.{i}.{rest}"
+                                    for i in range(j, len(mods), step)))
+    return stacks
+
+
 # ========================================================== block application
-def _apply_ff(cfg: ModelConfig, blk: Block, x: torch.Tensor) -> torch.Tensor:
+def _apply_ff(cfg: ModelConfig, blk: Block, x: torch.Tensor,
+              aux: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """The feed-forward half of a layer; with ``aux`` (training) the MoE's
+    load-balance and router z losses are added into it."""
     if blk.norm2 is None:
         return x
     h = L.rms_norm(x, blk.norm2, cfg.norm_eps)
     delta = None
     if blk.moe is not None:
-        delta, _ = moe_mod.moe_apply(blk.moe, h, top_k=cfg.moe_top_k,
-                                     capacity_factor=cfg.capacity_factor)
+        delta, routing = moe_mod.moe_apply(
+            blk.moe, h, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.capacity_factor)
+        if aux is not None:
+            a = moe_mod.moe_aux(routing)
+            aux["lb_loss"] = aux["lb_loss"] + a.load_balance_loss
+            aux["z_loss"] = aux["z_loss"] + a.z_loss
     if blk.mlp is not None:
         m = blk.mlp(h)
         delta = m if delta is None else delta + m
@@ -193,20 +229,143 @@ def _apply_cross(cfg: ModelConfig, cr: CrossAttention, x: torch.Tensor,
     return x + cr.attn.out_proj(ctx)
 
 
-def encode(cfg: ModelConfig, model: LM, src_embeds: torch.Tensor
-           ) -> torch.Tensor:
-    """Encoder stack (bidirectional attention) over stub frame embeddings."""
+def _cross_kv(cr: CrossAttention, enc_out: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return L._proj_in(enc_out, cr.attn.wk), L._proj_in(enc_out, cr.attn.wv)
+
+
+def _remat(fn, remat: bool, policy: str = "nothing"):
+    """``fn`` checkpointed (its activations recomputed in the backward pass)
+    when ``remat``: ``"nothing"`` saves nothing inside it, ``"dots"``
+    saves the products with a weight (the reference's
+    ``dots_with_no_batch_dims_saveable``: matmuls without batch
+    dimensions, which torch runs as ``mm``; attention's and the MoE's
+    batched products are recomputed)."""
+    if not remat:
+        return fn
+    kwargs = {"use_reentrant": False}
+    if policy == "dots":
+        kwargs["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    elif policy != "nothing":
+        raise ValueError(f"unknown remat policy {policy!r}")
+    return functools.partial(ckpt.checkpoint, fn, **kwargs)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default \
+        else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def encode(cfg: ModelConfig, model: LM, src_embeds: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
+    """Encoder stack (bidirectional attention) over stub frame embeddings;
+    ``remat`` checkpoints each layer (training)."""
     x = src_embeds.to(cfg.cdtype)
     positions = torch.arange(x.shape[1], device=x.device)
     cos, sin = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    for blk in model.enc_layers:
+
+    def layer(blk, x):
         h = L.rms_norm(x, blk.norm1, cfg.norm_eps)
         q, k, v = blk.attn.qkv_proj(h)
         ctx = L.attention(L.rotate(q, cos, sin), L.rotate(k, cos, sin), v,
                           positions, None, causal=False, q_chunk=4096)
         x = x + blk.attn.out_proj(ctx)
-        x = _apply_ff(cfg, blk, x)
+        return _apply_ff(cfg, blk, x)
+
+    layer = _remat(layer, remat)
+    for blk in model.enc_layers:
+        x = layer(blk, x)
     return L.rms_norm(x, model.enc_final_norm, cfg.norm_eps)
+
+
+# ================================================================= training
+def _apply_sub_train(cfg: ModelConfig, blk: Block, x: torch.Tensor,
+                     rope, positions: torch.Tensor,
+                     aux: Dict[str, torch.Tensor], q_chunk: int
+                     ) -> torch.Tensor:
+    h = L.rms_norm(x, blk.norm1, cfg.norm_eps)
+    if blk.attn is not None:
+        q, k, v = blk.attn.qkv_proj(h)
+        ctx = L.attention(L.rotate(q, *rope), L.rotate(k, *rope), v,
+                          positions, None, causal=True, q_chunk=q_chunk)
+        x = x + blk.attn.out_proj(ctx)
+    else:
+        out, _ = ssm_mod.ssm_forward(blk.ssm, h,
+                                     chunk=min(cfg.ssm_chunk, x.shape[1]))
+        x = x + out
+    return _apply_ff(cfg, blk, x, aux)
+
+
+def _blocks_train(cfg: ModelConfig, model: LM, x: torch.Tensor,
+                  q_chunk: int, enc_out: Optional[torch.Tensor],
+                  remat: bool, remat_policy: str
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Every layer, one superblock (``period`` layers) a checkpoint; the
+    aux losses summed in a superblock, then over the superblocks."""
+    period = cfg.superblock_period()
+    positions = torch.arange(x.shape[1], device=x.device)
+    rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta) \
+        if cfg.num_heads else None
+
+    def superblock(s, x):
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = {"lb_loss": zero, "z_loss": zero}
+        for i in range(s * period, (s + 1) * period):
+            x = _apply_sub_train(cfg, model.layers[i], x, rope, positions,
+                                 aux, q_chunk)
+            if enc_out is not None:
+                cr = model.cross[i]
+                x = _apply_cross(cfg, cr, x, *_cross_kv(cr, enc_out))
+        return x, aux["lb_loss"], aux["z_loss"]
+
+    superblock = _remat(superblock, remat, remat_policy)
+    lbs, zls = [], []
+    for s in range(cfg.num_layers // period):
+        x, lb, zl = superblock(s, x)
+        lbs.append(lb)
+        zls.append(zl)
+    return x, {"lb_loss": torch.stack(lbs).sum(),
+               "z_loss": torch.stack(zls).sum()}
+
+
+def forward_train(cfg: ModelConfig, model: LM, batch: Dict[str, Any],
+                  q_chunk: int = 1024, remat: bool = True,
+                  remat_policy: str = "nothing"
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token (+ modality-stub) inputs -> (total loss, metrics): the masked
+    mean cross-entropy over f32 logits (the vocabulary pad masked at
+    -1e30, a vlm's patch prefix dropped before the head) plus
+    ``aux_loss_weight``·lb + ``router_z_loss``·z of the MoE layers.
+    ``batch``: ``tokens``, ``labels`` (B, S), ``loss_mask`` and, by
+    family, ``patch_embeds`` or ``src_embeds``."""
+    x = F.embedding(batch["tokens"], model.embed).to(cfg.cdtype)
+    offset = 0
+    if cfg.frontend == "vision":
+        pe = batch["patch_embeds"].to(cfg.cdtype) @ model.patch_proj
+        x = torch.cat([pe, x], dim=1)
+        offset = pe.shape[1]
+    enc_out = encode(cfg, model, batch["src_embeds"], remat=remat) \
+        if cfg.encoder_layers else None
+    x, aux = _blocks_train(cfg, model, x, q_chunk, enc_out, remat,
+                           remat_policy)
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    if offset:
+        x = x[:, offset:, :]
+    head = model.head
+    logits = (x @ head.T).float()                          # bf16 product
+    if head.shape[0] != cfg.vocab_size:                    # mask vocab pad
+        pad = torch.arange(head.shape[0], device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, L.MASKED)
+    mask = batch["loss_mask"].float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
+    loss = torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                         min=1.0)
+    total = loss + cfg.aux_loss_weight * aux["lb_loss"] \
+        + cfg.router_z_loss * aux["z_loss"]
+    return total, {"loss": loss, "lb_loss": aux["lb_loss"],
+                   "z_loss": aux["z_loss"]}
 
 
 # ================================================================= decoding
@@ -307,7 +466,8 @@ def fill_cross_caches(cfg: ModelConfig, model: LM, state: State,
     """Write every decoder layer's encoder K/V at slots [0, S_src) of its
     cross cache (in place)."""
     for cr, ck in zip(model.cross, state["cross"]):
-        L.update_cache(ck["k"], L._proj_in(enc_out, cr.attn.wk), 0)
-        L.update_cache(ck["v"], L._proj_in(enc_out, cr.attn.wv), 0)
+        k, v = _cross_kv(cr, enc_out)
+        L.update_cache(ck["k"], k, 0)
+        L.update_cache(ck["v"], v, 0)
     return state
 

@@ -1,2 +1,2 @@
-"""Step factories of the LM stack (the port of ``repro.train``; serving
-half)."""
+"""Training and serving steps, the trainer and its callbacks (the port of
+``repro.train``)."""

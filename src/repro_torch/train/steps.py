@@ -1,18 +1,102 @@
-"""Serving step factories (the port of ``repro.train.steps``, serving half):
+"""Train and serving step factories (the port of ``repro.train.steps``):
 
+* ``make_train_step``   — forward + loss + backward + AdamW/Adafactor;
 * ``make_prefill_step`` — prompt → filled caches + first-token logits;
 * ``make_decode_step``  — one token against the cache (+ SSM states).
 
-Plain callables, run without autograd on the model's device.
+Plain callables on the model's device.  A train state is ``{"model": LM,
+"opt": AdamWState | AdafactorState, "step": int}``; the step updates the
+weights and the optimizer's state in place and returns the state.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+import dataclasses
+from typing import Any, Callable, Dict
 
 import torch
 
 from repro_torch.models import model as model_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim import (AdafactorConfig, AdamWConfig, adafactor_init,
+                               adafactor_update, adamw_init, adamw_update,
+                               cosine_schedule)
+
+TrainState = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    optimizer: str = "adamw"          # adamw | adafactor
+    peak_lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    q_chunk: int = 1024
+    remat: bool = True
+    remat_policy: str = "nothing"     # nothing | dots
+
+
+def init_optimizer(cfg: ModelConfig, tcfg: TrainStepConfig,
+                   model: model_mod.LM):
+    """The optimizer's zero state for ``model``'s weights."""
+    params = dict(model.named_parameters())
+    if tcfg.optimizer == "adamw":
+        return adamw_init(params)
+    return adafactor_init(params, stacks=model_mod.param_stacks(cfg, model))
+
+
+def init_train_state(cfg: ModelConfig, tcfg: TrainStepConfig,
+                     generator: torch.Generator, device=None, tp: int = 1
+                     ) -> TrainState:
+    """Weights drawn from ``generator`` on ``device`` (the card unless the
+    caller names another), the optimizer's zero state, step 0."""
+    model = model_mod.init_params(cfg, generator, tp=tp, device=device)
+    model.requires_grad_(True)
+    return {"model": model, "opt": init_optimizer(cfg, tcfg, model),
+            "step": 0}
+
+
+def make_train_step(cfg: ModelConfig,
+                    tcfg: TrainStepConfig = TrainStepConfig()) -> Callable:
+    """Returns ``train_step(state, batch) -> (state, metrics)``: the loss and
+    its backward, the cosine schedule's rate for the step, then AdamW
+    (metrics' ``grad_norm`` the pre-clip norm) or Adafactor
+    (``grad_norm`` 0).  Metrics are tensors: ``loss``, ``lb_loss``,
+    ``z_loss``, ``grad_norm``, ``lr``, ``total_loss``."""
+    if tcfg.optimizer == "adamw":
+        ocfg = AdamWConfig(lr=tcfg.peak_lr)
+    elif tcfg.optimizer == "adafactor":
+        ocfg = AdafactorConfig(lr=tcfg.peak_lr)
+    else:
+        raise ValueError(f"unknown optimizer {tcfg.optimizer!r}")
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        model = state["model"].requires_grad_(True)
+        model.zero_grad(set_to_none=True)
+        total, metrics = model_mod.forward_train(
+            cfg, model, batch, q_chunk=tcfg.q_chunk, remat=tcfg.remat,
+            remat_policy=tcfg.remat_policy)
+        total.backward()
+        params = dict(model.named_parameters())
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                 for n, p in params.items()}
+        lr = cosine_schedule(state["step"], tcfg.warmup_steps,
+                             tcfg.total_steps, tcfg.peak_lr)
+        if tcfg.optimizer == "adamw":
+            _, opt, gnorm = adamw_update(grads, state["opt"], params, ocfg,
+                                         lr=float(lr))
+        else:
+            _, opt = adafactor_update(
+                grads, state["opt"], params, ocfg, lr=float(lr),
+                stacks=model_mod.param_stacks(cfg, model))
+            gnorm = torch.zeros(())
+        del grads
+        model.zero_grad(set_to_none=True)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(grad_norm=gnorm, lr=lr, total_loss=total.detach())
+        return {"model": model, "opt": opt, "step": state["step"] + 1}, \
+            metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int, tp: int = 1

@@ -9,6 +9,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_config as ref_config
@@ -112,3 +113,68 @@ def twin_run(arch: str, dtype: str, seed: int = 0, steps: int = STEPS,
         pl, ps = p_dec(model, torch.from_numpy(np.asarray(tok, np.int64)), ps)
     assert int(rs["pos"]) == ps["pos"]
     return ref, port, rtok, ptok
+
+
+# ------------------------------------------------------------- training
+def train_inputs(cfg, seed: int, batch: int = BATCH, seq: int = 16):
+    """Seeded numpy training batch: tokens, labels, a loss mask with a few
+    zeros, and by family the stub patch or frame embeddings."""
+    rng = np.random.default_rng(seed)
+    out = lm_inputs(cfg, seed, batch, seq)
+    out["labels"] = rng.integers(0, cfg.vocab_size, (batch, seq)
+                                 ).astype(np.int32)
+    mask = np.ones((batch, seq), np.float32)
+    mask[:, :2] = 0.0
+    out["loss_mask"] = mask
+    return out
+
+
+def ref_train_batch(rc, inputs):
+    return {k: jnp.asarray(v) if k in ("tokens", "labels", "loss_mask")
+            else jnp.asarray(v, rc.pdtype) for k, v in inputs.items()}
+
+
+def port_train_batch(pc, inputs, device="cpu"):
+    return {k: (torch.from_numpy(v.astype(np.int64)) if k in ("tokens",
+                                                              "labels")
+                else torch.from_numpy(v) if k == "loss_mask"
+                else torch.from_numpy(v).to(pc.pdtype)).to(device)
+            for k, v in inputs.items()}
+
+
+def ref_leaves(pc, tree, model) -> dict:
+    """A params-shaped reference pytree (numpy leaves) as {port name: the
+    leaf's slice for that weight}, f32."""
+    from repro_torch.carry import ref_leaf
+    return {n: np.asarray(ref_leaf(pc, tree, n, p.shape), np.float32)
+            for n, p in model.named_parameters()}
+
+
+def ref_params_from_port(rc, pc, model):
+    """The reference's ``init_params`` pytree (its structure from
+    ``jax.eval_shape``) holding the port model's weights: drawing with
+    torch and carrying them over costs a fraction of the reference's own
+    eager draw."""
+    from repro_torch.carry import ref_leaf
+    shapes = jax.eval_shape(lambda: ref_model.init_params(jax.random.key(0),
+                                                          rc))
+    tree = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    for name, p in model.named_parameters():
+        view = ref_leaf(pc, tree, name, p.shape)
+        src = p.detach()
+        if src.dtype == torch.bfloat16:
+            view.view(np.int16)[...] = src.view(torch.int16).numpy()
+        else:
+            view[...] = src.numpy()
+    return jax.tree.map(jnp.asarray, tree)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """SMOKE-sized torch steps are bound by their launches: one intra-op
+    thread (restored after the test) keeps them from slowing down many
+    times over when other processes share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
