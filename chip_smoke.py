@@ -21,7 +21,10 @@ Phases, each failing the run (non-zero exit) if it fails:
                  N = 100 003, D ∈ {2, 8, 12} × log2_cols ∈ {6, 18, 22}
                  with points on bin edges and outside the grid; K7 at
                  R ∈ {1, 16} × log2_cols ∈ {6, 18, 22}, integer and
-                 weighted; K8 at Q = 40 000;
+                 weighted; K8 (hash, gather and median in one kernel)
+                 at Q = 40 000 with (R, C) ∈ {(16, 2^18), (8, 2^20),
+                 (3, 2^18)}, explicit keys and the keys (0, start + j),
+                 by int32 view (signed zeros count);
 3. main        — ``pipeline.run`` at the paper's cancer configuration
                  (``CANCER``, UMAP, exact kNN) on
                  ``gaussian_mixture(26_000_000, dims=8)``, the paper's 26M
@@ -79,6 +82,8 @@ Phases, each failing the run (non-zero exit) if it fails:
                  versions, the library calls and the bounds; K7 on a
                  chunk and ``index_add_`` in turns, 7 rounds, each round
                  printed, with the adds issued and the adds a second;
+                 K8 beside its gather floor (``torch.gather`` of the
+                 precomputed (R, Q) buckets) and its L2 sector traffic;
 11. service    — path V, the host tier: the same 26M points as 4 host
                  shards of 6.5M (the paper's sites).  ``run_resilient(
                  CANCER)`` with shard 3 dropped and flaky attempts:
@@ -201,8 +206,9 @@ Phases, each failing the run (non-zero exit) if it fails:
                  the corrected gradient's on and off the kept set (the
                  error-feedback identity), step 1's K7 table within
                  1e-5·max|table| of the float64 plain version and K8's
-                 values equal to its plain version; K7 and K8 timed at
-                 T3's chunk (``per_call.train`` of the kernels line).
+                 first chunk equal to its plain version by int32 view;
+                 K7 and K8 timed at T3's chunk (``per_call.train`` of
+                 the kernels line).
 
 Prints the nvidia-smi name/power-limit line, then one
 ``{"kernels": [...]}`` line (nine entries: K1-K4, K5a, K5b, K6-K8), then ``{"ok": true, "device": ...}`` last.
@@ -760,16 +766,32 @@ def check_sketch_update(params, hi, lo, v, log2_cols, integer):
     return err.max().item()
 
 
-def check_sketch_estimate(table, buckets, signs):
-    """K8 bit-exact (signed zeros included) against its plain version."""
+def same_bits(a, b) -> bool:
+    """Equal float32 tensors by int32 view: signed zeros count."""
+    import torch
+    return a.dtype == b.dtype == torch.float32 and a.shape == b.shape and \
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_sketch_estimate(table, params, hi, lo, start):
+    """K8 on both key sources against its plain version by int32 view:
+    the keys (hi, lo), and the keys (0, start + j), j < Q, written into a
+    slice of a larger tensor.  Returns the −0.0 estimates among them."""
     import torch
     from repro_torch.kernels import sketch_estimate as se
-    got = se.sketch_estimate_cuda(table, buckets, signs)
-    want = se.sketch_estimate_torch(table, buckets, signs)
-    if not (torch.equal(got, want) and torch.equal(torch.signbit(got),
-                                                   torch.signbit(want))):
-        raise AssertionError("sketch_estimate: not bit-exact")
-    return 0.0
+    q = hi.shape[0]
+    want = se.estimate_torch(table, params, hi, lo)
+    want_r = se.estimate_range_torch(table, params, start, q)
+    got = se.estimate_cuda(table, params, hi, lo)
+    out = torch.full((q + 2,), 7.0, device=table.device)
+    se.estimate_range_cuda(table, params, start, out[1:q + 1])
+    if not (same_bits(got, want) and same_bits(out[1:q + 1], want_r)
+            and float(out[0]) == float(out[-1]) == 7.0):
+        raise AssertionError(f"sketch_estimate: not bit-exact at R "
+                             f"{params.rows}, C {table.shape[1]}, Q {q}")
+    neg0 = -(1 << 31)
+    return int((want.view(torch.int32) == neg0).sum()
+               + (want_r.view(torch.int32) == neg0).sum())
 
 
 def key_stream(device, n, universe, seed):
@@ -813,15 +835,20 @@ def phase_check_sketch(device):
         f"values; weighted max_abs_err {max(errs):.3e} (within "
         f"1e-5·Σ|contrib| per cell)")
     q = CHECK_SKETCH_QUERIES
-    params = hashing.make_params(prng.key(8, device=device), 16)
-    hi, lo = key_stream(device, q, 10 ** 12, 8)
-    b, s = hashing.hashes(params, hi, lo, 18)
-    table = torch.randn((16, 1 << 18), generator=torch.Generator(
-        device=device).manual_seed(8), device=device) * 100
-    table[:, ::3] = 0.0
-    check_sketch_estimate(table, b, s)
-    log(f"[check] sketch_estimate_table at R=16, C=2^18, Q={q} (zero cells "
-        f"included): bit-exact, signed zeros too")
+    negs = {}
+    for r, l2c in ((16, 18), (8, 20), (3, 18)):
+        params = hashing.make_params(prng.key(r, device=device), r)
+        hi, lo = key_stream(device, q, 10 ** 12, r)
+        table = torch.randn((r, 1 << l2c), generator=torch.Generator(
+            device=device).manual_seed(r), device=device) * 100
+        table[:, ::3] = 0.0
+        table[:, 1::5] = table[:, 1::5].round().clamp(-2, 2)
+        negs[r] = check_sketch_estimate(table, params, hi, lo, 3 << 30)
+    log(f"[check] sketch_estimate_table at Q={q}, (R, C) in (16, 2^18), "
+        f"(8, 2^20), (3, 2^18) (the general path), explicit keys and the "
+        f"keys (0, 3·2^30 + j) into a slice, a third of the cells 0 and a "
+        f"fifth small integers: bit-exact by int32 view ({negs} -0.0 "
+        f"estimates by R)")
 
 
 def blob_separation(reps, emb, centers):
@@ -2797,9 +2824,7 @@ def phase_ops(device, pts, cfg):
     twin = su.sketch_update_torch(torch.zeros_like(sk.table), hp, kh, kl,
                                   torch.ones_like(kh, dtype=torch.float32))
     same_table = torch.equal(sk.table, twin)
-    qb, qs = hashing.hashes(hp, q_hi, q_lo, l2c)
-    same_est = torch.equal(est, sketch.median_rows(
-        se.sketch_estimate_torch(twin, qb, qs)))
+    same_est = same_bits(est, se.estimate_torch(twin, hp, q_hi, q_lo))
     log(f"[ops] {PARITY_POINTS} points in {chunks} chunks of {step}, R "
         f"{hp.rows}, C 2^{l2c}: {wall:.3f} s, launches {launches}; "
         f"hash_points == hashing.hashes(points_to_keys): {same_hash}; "
@@ -2811,15 +2836,75 @@ def phase_ops(device, pts, cfg):
                              "its plain version")
 
 
+def k8_row(tag, table, params, hi, lo, n, iters):
+    """K8 checked and timed on explicit keys (hi, lo), or with ``n`` and
+    hi = lo = None on the keys (0, j), j < n: the fused kernel against
+    its plain version (the chain it replaced: torch hashing, the (R, Q)
+    signed gather, a sort), by int32 view; no single PyTorch call hashes,
+    gathers and takes the median, so the library column is None.  Beside
+    it the gather floor: ``torch.gather`` of the R·Q precomputed int64
+    buckets from the same table.  The bound counts the keys read (16 B a
+    query, explicit keys only), the output written (4 B a query) and the
+    table cells the queries touch (4 B each, where the call finds them
+    outside L2); the gathers' own traffic, R·Q 32-byte L2 sectors, is
+    printed beside it."""
+    import torch
+    from repro_torch.core import hashing
+    from repro_torch.kernels import sketch_estimate as se
+    r, l2c = params.rows, table.shape[1].bit_length() - 1
+    q = hi.shape[0] if n is None else n
+    if n is None:
+        check_sketch_estimate(table, params, hi, lo, 0)
+        b = hashing.hashes(params, hi, lo, l2c)[0]
+        fns = {"ms": lambda: se.estimate_cuda(table, params, hi, lo),
+               "plain_ms": lambda: se.estimate_torch(table, params, hi, lo)}
+        key_bytes = 16 * q
+    else:
+        out = torch.empty(n, device=table.device)
+        want = se.estimate_range_torch(table, params, 0, n)
+        if not same_bits(se.estimate_range_cuda(table, params, 0, out), want):
+            raise AssertionError(f"[kernels] {tag}: K8 differs from its plain "
+                                 f"version")
+        del want
+        lo = torch.arange(n, device=table.device)
+        b = hashing.hashes(params, torch.zeros_like(lo), lo, l2c)[0]
+        del lo
+        fns = {"ms": lambda: se.estimate_range_cuda(table, params, 0, out),
+               "plain_ms": lambda: se.estimate_range_torch(table, params, 0,
+                                                           n)}
+        key_bytes = 0
+    b = b.contiguous()
+    cells = int(torch.unique(((torch.arange(r, device=b.device) << l2c)
+                              [:, None] | b).reshape(-1)).numel())
+    row = timings(dict(fns, library_ms=None), iters)
+    row["gather_floor_ms"], how = card_ms(lambda: torch.gather(table, 1, b),
+                                          iters)
+    row["timed_by"]["gather_floor_ms"] = how
+    nbytes = key_bytes + 4 * q + 4 * cells
+    row["bound_ms"], row["bound_by"] = op_bound_ms(nbytes)
+    row["max_abs_err"] = 0.0
+    row["gather_sector_bytes"] = 32 * r * q
+    row["shapes"] = {"r": r, "q": q, "log2_cols": l2c, "cells": cells,
+                     "keys": "explicit" if n is None else "(0, j)"}
+    log_row(tag, row, f"; R {r}, Q {q}, C 2^{l2c}, {cells} cells touched: "
+            f"{nbytes / 1e6:.2f} MB; gathers {r * q} = "
+            f"{32 * r * q / 1e6:.1f} MB of 32-byte L2 sectors; gather floor "
+            f"(torch.gather of the precomputed (R, Q) buckets) "
+            f"{us(row['gather_floor_ms'])} us ({how}); bit-exact by int32 "
+            f"view; library: none (no one call hashes, gathers and takes "
+            f"the median); timed by {row['timed_by']}")
+    del b
+    return row
+
+
 def phase_sketch_kernels(device, pts, cfg, state, runs):
     """K6 on one chunk, K7 on one chunk's runs and on the one-shot's runs
-    at CANCER, K8 on the CANCER candidate pool (Q = 40 000): checked and
-    timed against the plain versions, the library calls and the byte
-    bounds.  Returns their kernels-line entries."""
+    at CANCER, K8 (fused hash → gather → median) on the CANCER candidate pool
+    (Q = 40 000): checked and timed against the plain versions, the
+    library calls and the byte bounds.  Returns their kernels-line entries."""
     import torch
     from repro_torch.core import candidates, hashing, pipeline, quantize
     from repro_torch.kernels import hash_points as hp_mod
-    from repro_torch.kernels import sketch_estimate as se
     from repro_torch.kernels import sketch_update as su
 
     hp = pipeline._hash_params(cfg, device, None)
@@ -2914,20 +2999,8 @@ def phase_sketch_kernels(device, pts, cfg, state, runs):
         del b, s, idx, vals, table, flat
 
     q_hi, q_lo = state.cands.key_hi.contiguous(), state.cands.key_lo.contiguous()
-    tab = state.sketch.table
-    qb, qs = hashing.hashes(hp, q_hi, q_lo, l2c)
-    qb, qs = qb.contiguous(), qs.contiguous()
-    check_sketch_estimate(tab, qb, qs)
-    q = qb.shape[1]
-    k8 = timings({"ms": lambda: se.sketch_estimate_cuda(tab, qb, qs),
-                  "plain_ms": lambda: se.sketch_estimate_torch(tab, qb, qs),
-                  "library_ms": lambda: torch.gather(tab, 1, qb) * qs}, 100)
-    nbytes = r * q * (8 + 8 + 4 + 4)
-    k8["bound_ms"], k8["bound_by"] = op_bound_ms(nbytes)
-    k8["max_abs_err"] = 0.0
-    log_row("sketch_estimate_table", k8, f"; R {r}, Q {q}, C 2^{l2c}: "
-            f"{nbytes / 1e6:.2f} MB; bit-exact; library = torch.gather "
-            f"times the signs; timed by {k8['timed_by']}")
+    k8 = k8_row("sketch_estimate_table", state.sketch.table, hp, q_hi, q_lo,
+                None, 100)
 
     def entry(name, row, line, path):
         return dict({"name": name, "route": "cuda",
@@ -3561,9 +3634,7 @@ def train_t3(device):
     S 2048, 3 steps.  Returns the K7 and K8 rows at these shapes."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import hashing, sketch
-    from repro_torch.kernels import sketch_estimate as se
-    from repro_torch.kernels import sketch_update as su
+    from repro_torch.core import sketch
     from repro_torch.models import model as model_mod
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
     from repro_torch.optim import sketch_compress as sc
@@ -3670,13 +3741,12 @@ def train_t3(device):
 
 def t3_kernel_rows(device, flat, sk, chunk):
     """K7's step-1 table against the float64 plain version over all
-    coordinates (within 1e-5·max|table|), K8 on the first chunk against
-    its plain version (bit for bit); then both timed on one chunk of
-    ``chunk`` coordinates against the plain versions, the library calls
-    and the bounds."""
+    coordinates (within 1e-5·max|table|), K7 timed on one chunk of
+    ``chunk`` coordinates against its plain version, the library call
+    and the bound; then K8 on the first chunk's keys (0, j) against its
+    plain version by int32 view and timed the same way (:func:`k8_row`)."""
     import torch
     from repro_torch.core import hashing
-    from repro_torch.kernels import sketch_estimate as se
     from repro_torch.kernels import sketch_update as su
 
     hp, l2c, r = sk.params, sk.log2_cols, sk.rows
@@ -3692,15 +3762,11 @@ def t3_kernel_rows(device, flat, sk, chunk):
     hi = torch.zeros_like(lo)
     vals = flat[:chunk].contiguous()
     qb, qs = hashing.hashes(hp, hi, lo, l2c)
-    qb, qs = qb.contiguous(), qs.contiguous()
-    same8 = torch.equal(se.sketch_estimate_cuda(sk.table, qb, qs),
-                        se.sketch_estimate_torch(sk.table, qb, qs))
     log(f"[train] T3 K7: step 1's table (R {r}, C 2^{l2c}, {n} weighted "
         f"coordinates) vs the float64 plain version: max |d| {err7:.3e} "
-        f"(max |table| {scale:.3e}, bar 1e-5 of it); K8 on the first "
-        f"{chunk} coordinates == its plain version bit for bit: {same8}")
-    if err7 > 1e-5 * scale or not same8:
-        raise AssertionError("[train] T3: K7 or K8 disagrees with its plain "
+        f"(max |table| {scale:.3e}, bar 1e-5 of it)")
+    if err7 > 1e-5 * scale:
+        raise AssertionError("[train] T3: K7 disagrees with its plain "
                              "version")
     table = torch.zeros_like(sk.table)
     flat_idx = ((torch.arange(r, device=device) << l2c)[:, None] | qb
@@ -3723,17 +3789,9 @@ def t3_kernel_rows(device, flat, sk, chunk):
             f"{adds / (k7['ms'] * 1e-3) / 1e9:.1f}e9 adds/s (the L2's "
             f"scattered fp32 atomics bound it in practice); timed by "
             f"{k7['timed_by']}")
-    k8 = timings({"ms": lambda: se.sketch_estimate_cuda(sk.table, qb, qs),
-                  "plain_ms": lambda: se.sketch_estimate_torch(sk.table, qb,
-                                                               qs),
-                  "library_ms": lambda: torch.gather(sk.table, 1, qb) * qs},
-                 5)
-    nbytes = r * chunk * (8 + 8 + 4) + sk.table.numel() * 4
-    k8["bound_ms"], k8["bound_by"] = op_bound_ms(nbytes)
-    k8["max_abs_err"] = 0.0
-    log_row("sketch_estimate_table train (T3 chunk)", k8,
-            f"; R {r}, Q {chunk}, C 2^{l2c}: {nbytes / 1e6:.2f} MB; "
-            f"bit-exact; timed by {k8['timed_by']}")
+    del qb, qs, flat_idx, signed, table
+    k8 = k8_row("sketch_estimate_table train (T3 chunk)", sk.table, hp,
+                None, None, chunk, 5)
     return {"sketch_update_table": k7, "sketch_estimate_table": k8}
 
 

@@ -6,10 +6,12 @@ built with the same hashes merge by addition.
 
 On CUDA tensors the scatter of :func:`update` is the hand-written kernel
 K7 (``kernels/sketch_update.py``: R hashes a key in registers, R atomic
-adds, one launch a call) and the gather of :func:`estimate` is K8
-(``kernels/sketch_estimate.py``); CPU tensors take their plain twins
-(``index_add_`` and ``torch.gather``).  Integer counts below 2**24 add to
-the same bits in any order, so tables match the reference's bit for bit.
+adds, one launch a call) and all of :func:`estimate` is K8
+(``kernels/sketch_estimate.py``: R hashes, R gathers and the median over
+rows in registers, one launch a call); CPU tensors take their plain
+twins (``index_add_``; hashes, ``torch.gather`` and a sort).  Integer
+counts below 2**24 add to the same bits in any order, so tables match
+the reference's bit for bit.
 Weighted values (:func:`tensor_sketch_update`'s gradient coordinates)
 agree to fp32 rounding only: the kernel's atomics add in a
 schedule-dependent order.
@@ -24,7 +26,8 @@ from repro_torch.core import hashing, u64
 from repro_torch.core import mesh as mesh_mod
 from repro_torch.core.candidates import (INVALID_KEY, KeyRuns, sorted_runs,
                                          topk_desc)
-from repro_torch.kernels.sketch_estimate import sketch_estimate
+from repro_torch.kernels import sketch_estimate as _k8
+from repro_torch.kernels.sketch_estimate import median_rows
 from repro_torch.kernels.sketch_update import sketch_update
 
 
@@ -115,20 +118,12 @@ def l2_estimate(sk: CountSketch) -> torch.Tensor:
     return torch.sqrt(median_rows((sk.table.to(torch.float32) ** 2).sum(1)))
 
 
-def median_rows(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.median(x, axis=0)``: sort, then the mean of the two middle
-    values, as (low + high) * 0.5 (``torch.median`` returns the lower)."""
-    s = torch.sort(x, dim=0)[0]
-    r = x.shape[0]
-    return (s[(r - 1) // 2] + s[r // 2]) * 0.5
-
-
 def estimate(sk: CountSketch, key_hi: torch.Tensor, key_lo: torch.Tensor
              ) -> torch.Tensor:
-    """Median over rows of h2_r(i)·S[r, h1_r(i)].  (items,) float32."""
-    buckets, signs = hashing.hashes(sk.params, key_hi, key_lo, sk.log2_cols)
-    return median_rows(sketch_estimate(sk.table, buckets.contiguous(),
-                                       signs.contiguous()))
+    """Median over rows of h2_r(i)·S[r, h1_r(i)] (``median_rows``).
+    (items,) float32: one K8 launch on the card."""
+    return _k8.estimate(sk.table, sk.params, key_hi.contiguous(),
+                        key_lo.contiguous())
 
 
 def topk_from_candidates(sk: CountSketch, cand_hi: torch.Tensor,
@@ -186,11 +181,9 @@ def tensor_sketch_update(sk: CountSketch, grad_flat: torch.Tensor
 
 def tensor_sketch_estimate(sk: CountSketch, n: int) -> torch.Tensor:
     """Estimate all n coordinates of a sketched dense vector: (n,) float32,
-    one K8 launch (and a median over rows) a chunk."""
+    one K8 launch a chunk, which hashes the coordinates itself and writes
+    its slice of the result."""
     out = torch.empty(n, dtype=torch.float32, device=sk.table.device)
-    chunk = TENSOR_CHUNK
-    for s in range(0, n, chunk):
-        lo = torch.arange(s, min(n, s + chunk), dtype=torch.int64,
-                          device=out.device)
-        out[s:s + chunk] = estimate(sk, torch.zeros_like(lo), lo)
+    for s in range(0, n, TENSOR_CHUNK):
+        _k8.estimate_range(sk.table, sk.params, s, out[s:s + TENSOR_CHUNK])
     return out

@@ -1,8 +1,8 @@
 // The Count Sketch's three kernels: K6 hash_points (quantize -> pack ->
 // hash a block of points), K7 sketch_update_table (hash keys and add
-// sign * value into the (R, C) table) and K8 sketch_estimate_table (the
-// signed gather sign * table[r, bucket] that sketch.estimate takes the
-// median of).
+// sign * value into the (R, C) table) and K8 sketch_estimate_table (hash
+// keys, gather sign * table[r, bucket] and take the median over rows:
+// sketch.estimate).
 //
 // Hash family (core/hashing.py, Thorup's vector multiply-shift): a 64-bit
 // key x = (x_hi, x_lo) and 64-bit parameters (a1, a2, b) of row r give
@@ -62,22 +62,49 @@
 // takes a third of the time (chip_k7_layouts.py, PERF.md section 6).
 //
 // K8 replaces repro/kernels/sketch_estimate.py:_kernel (behind
-// ops.sketch_estimate_mxu).  A TPU gathers slowly, so that kernel
-// contracted a one-hot (Q_tile x C_tile) indicator with the table on the
-// MXU, R*Q*C multiply-adds.  Design: one thread per (r, q) reads its
-// bucket and sign and gathers one table value: R*Q loads instead of
-// R*Q*C MACs.  sign * value is exact, so the result equals the plain
-// version bit for bit.  The median over rows stays outside, as in the
-// reference (ops.py takes it after the kernel).
-// Bound: memory.  R*Q*(8 + 8 + 4) bytes of buckets, signs and output plus
-// the R*Q table values gathered (4 bytes each, from L2 when the table
-// fits).
+// ops.sketch_estimate_mxu) and the median the reference takes after it
+// (ops.py; sketch.estimate's jnp.median over rows).  A TPU gathers
+// slowly, so that kernel contracted a one-hot (Q_tile x C_tile)
+// indicator with the table on the MXU, R*Q*C multiply-adds, fed with
+// precomputed (R, Q) buckets and signs, and left the median to XLA.
+// Design: one thread per query.  The block stages the R hash triples in
+// shared memory (stage_params, as K6 and K7), so the hash is the one the
+// table was built with; the thread hashes its key R times (mulshift),
+// issues its R gathers table[r * C + bucket_r] back to back, so R loads
+// are in flight at once, and negates by the sign (exact).  It takes the
+// median in registers: each value's stable rank
+//   rank_i = #{j : v_j < v_i} + #{j < i : v_j == v_i}
+// (O(R^2) comparisons; NaN above every number and NaNs equal, the order
+// torch.sort gives), then (v at rank (R-1)/2 + v at rank R/2) * 0.5 with
+// the add and the product rounded one by one (__fadd_rn, __fmul_rn).
+// That is sketch.median_rows' stable sort and jnp.median's: -0.0 and
+// +0.0 compare equal and keep their row order, so even the sign of a
+// zero estimate matches, which candidates.topk_desc's total order sees.
+// One coalesced f32 store a query; no (R, Q) tensor and no sort exist.
+// Keys come from two sources in one body: explicit (key_hi, key_lo)
+// uint32 limbs in int64 (sketch.estimate), or implicitly (0, start + j)
+// for the dense-vector sketch (tensor_sketch_estimate), whose thread j
+// writes out[j] of the caller's slice.  R = 8 and R = 16 (every config)
+// are compiled with the values in registers; any other R up to
+// kMaxEstimateRows keeps each thread's column in shared memory.
+// Bound: memory.  16 bytes of keys read (explicit keys only) and 4 bytes
+// of output written a query, plus the table cells the queries touch, 4
+// bytes each, where the call finds them outside L2.  Beside that bound
+// the R*Q gathers move R*Q scattered 32-byte L2 sectors: with the table
+// in the 50 MB L2 (16 MiB at R 16, C 2^18; 32 MiB at R 8, C 2^20) they,
+// not device memory, pace the kernel at large Q.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+// K8: a thread a query.  R other than 8 and 16 keeps a block's R
+// triples and kGeneralThreads columns of R floats in shared memory: 35 KB
+// at kMaxEstimateRows, under the 48 KB a block has without the opt-in.
+constexpr int kEstimateThreads = 128;
+constexpr int kGeneralThreads = 64;
+constexpr int kMaxEstimateRows = 128;
 
 struct MulShift {
   uint64_t a1, a2, b;
@@ -166,21 +193,105 @@ sketch_update_kernel(const long long* __restrict__ key_hi,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-sketch_estimate_kernel(const float* __restrict__ table,
-                       const long long* __restrict__ buckets,
-                       const long long* __restrict__ signs,
-                       float* __restrict__ out, long long q, long long cols,
-                       long long total) {
-  const long long j = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (j >= total) return;
-  const long long r = j / q;
-  out[j] = table[r * cols + buckets[j]] * static_cast<float>(signs[j]);
+// NaN after every number, NaNs equal: the order torch.sort sorts in.
+__device__ __forceinline__ bool before(float a, float b) {
+  return a < b || (b != b && a == a);
 }
 
-unsigned int blocks_for(long long n) {
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+__device__ __forceinline__ uint64_t query_key(const long long* key_hi,
+                                              const long long* key_lo,
+                                              long long start, long long j) {
+  if (key_lo == nullptr) {
+    return static_cast<uint32_t>(start + j);
+  }
+  return (static_cast<uint64_t>(static_cast<uint32_t>(key_hi[j])) << 32) |
+         static_cast<uint32_t>(key_lo[j]);
+}
+
+__device__ __forceinline__ float signed_cell(const float* __restrict__ table,
+                                             const MulShift& p, uint64_t key,
+                                             int r, int log2_cols) {
+  const uint64_t h = mulshift(p, key);
+  const uint64_t cell =
+      (static_cast<uint64_t>(r) << log2_cols) | (h >> (64 - log2_cols));
+  const float v = __ldg(table + cell);
+  return (h >> 63) ? -v : v;
+}
+
+// The median of R values held in registers, by stable rank.
+template <int R>
+__device__ __forceinline__ float median_of(const float (&v)[R]) {
+  float lo = 0.0f, hi = 0.0f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    int rank = 0;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (j < i) rank += !before(v[i], v[j]);
+      if (j > i) rank += before(v[j], v[i]);
+    }
+    lo = rank == (R - 1) / 2 ? v[i] : lo;
+    hi = rank == R / 2 ? v[i] : hi;
+  }
+  return __fmul_rn(__fadd_rn(lo, hi), 0.5f);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kEstimateThreads)
+sketch_estimate_kernel(const float* __restrict__ table,
+                       const long long* __restrict__ key_hi,
+                       const long long* __restrict__ key_lo,
+                       ParamLimbs params, float* __restrict__ out,
+                       long long n, long long start, int log2_cols) {
+  __shared__ MulShift hp[R];
+  stage_params(params, R, hp);
+  const long long j = static_cast<long long>(blockIdx.x) * kEstimateThreads +
+                      threadIdx.x;
+  if (j >= n) return;
+  const uint64_t key = query_key(key_hi, key_lo, start, j);
+  float v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    v[r] = signed_cell(table, hp[r], key, r, log2_cols);
+  }
+  out[j] = median_of<R>(v);
+}
+
+// Any other R: the R triples, then each thread's R values as a column
+// (stride kGeneralThreads, so a warp's accesses hit distinct banks).
+__global__ void __launch_bounds__(kGeneralThreads)
+sketch_estimate_general_kernel(const float* __restrict__ table,
+                               const long long* __restrict__ key_hi,
+                               const long long* __restrict__ key_lo,
+                               ParamLimbs params, float* __restrict__ out,
+                               long long n, long long start, int rows,
+                               int log2_cols) {
+  extern __shared__ MulShift hp[];
+  stage_params(params, rows, hp);
+  const long long j = static_cast<long long>(blockIdx.x) * kGeneralThreads +
+                      threadIdx.x;
+  if (j >= n) return;
+  float* v = reinterpret_cast<float*>(hp + rows) + threadIdx.x;
+  const uint64_t key = query_key(key_hi, key_lo, start, j);
+  for (int r = 0; r < rows; ++r) {
+    v[r * kGeneralThreads] = signed_cell(table, hp[r], key, r, log2_cols);
+  }
+  float lo = 0.0f, hi = 0.0f;
+  for (int i = 0; i < rows; ++i) {
+    const float vi = v[i * kGeneralThreads];
+    int rank = 0;
+    for (int k = 0; k < i; ++k) rank += !before(vi, v[k * kGeneralThreads]);
+    for (int k = i + 1; k < rows; ++k) {
+      rank += before(v[k * kGeneralThreads], vi);
+    }
+    lo = rank == (rows - 1) / 2 ? vi : lo;
+    hi = rank == rows / 2 ? vi : hi;
+  }
+  out[j] = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
+}
+
+unsigned int blocks_for(long long n, int threads = kThreads) {
+  return static_cast<unsigned int>((n + threads - 1) / threads);
 }
 
 ParamLimbs limbs(const void* a1_hi, const void* a1_lo, const void* a2_hi,
@@ -191,6 +302,16 @@ ParamLimbs limbs(const void* a1_hi, const void* a1_lo, const void* a2_hi,
                     static_cast<const long long*>(a2_lo),
                     static_cast<const long long*>(b_hi),
                     static_cast<const long long*>(b_lo)};
+}
+
+template <int R>
+void launch_estimate(const float* table, const long long* key_hi,
+                     const long long* key_lo, ParamLimbs params, float* out,
+                     long long n, long long start, int log2_cols,
+                     cudaStream_t stream) {
+  sketch_estimate_kernel<R><<<blocks_for(n, kEstimateThreads),
+                              kEstimateThreads, 0, stream>>>(
+      table, key_hi, key_lo, params, out, n, start, log2_cols);
 }
 
 }  // namespace
@@ -240,19 +361,38 @@ extern "C" int sketch_update_f32(const void* key_hi, const void* key_lo,
   return static_cast<int>(cudaGetLastError());
 }
 
-// table (rows, cols) f32, buckets/signs (rows, q) int64 with buckets in
-// [0, cols), out (rows, q) f32.
-extern "C" int sketch_estimate_f32(const void* table, const void* buckets,
-                                   const void* signs, void* out,
-                                   long long rows, long long cols,
-                                   long long q, void* stream) {
-  const long long total = rows * q;
-  if (total <= 0) return 0;
-  sketch_estimate_kernel<<<blocks_for(total), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table),
-      static_cast<const long long*>(buckets),
-      static_cast<const long long*>(signs), static_cast<float*>(out), q,
-      cols, total);
+// table (rows, 2^log2_cols) f32, the six (rows,) int64 limb arrays of the
+// hash params; out (n,) f32 gets the estimate of query j: key (key_hi[j],
+// key_lo[j]) (int64 holding uint32), or (0, start + j) when key_hi and
+// key_lo are null.  rows in [1, kMaxEstimateRows].  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for another R.
+extern "C" int sketch_estimate_median_f32(
+    const void* table, const void* key_hi, const void* key_lo,
+    const void* a1_hi, const void* a1_lo, const void* a2_hi,
+    const void* a2_lo, const void* b_hi, const void* b_lo, void* out,
+    long long n, long long start, long long rows, long long log2_cols,
+    void* stream) {
+  if (rows < 1 || rows > kMaxEstimateRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return 0;
+  const float* t = static_cast<const float*>(table);
+  const long long* hi = static_cast<const long long*>(key_hi);
+  const long long* lo = static_cast<const long long*>(key_lo);
+  const ParamLimbs p = limbs(a1_hi, a1_lo, a2_hi, a2_lo, b_hi, b_lo);
+  float* o = static_cast<float*>(out);
+  const int l = static_cast<int>(log2_cols);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows == 8) {
+    launch_estimate<8>(t, hi, lo, p, o, n, start, l, s);
+  } else if (rows == 16) {
+    launch_estimate<16>(t, hi, lo, p, o, n, start, l, s);
+  } else {
+    const size_t smem = rows * (sizeof(MulShift) +
+                                kGeneralThreads * sizeof(float));
+    sketch_estimate_general_kernel<<<blocks_for(n, kGeneralThreads),
+                                     kGeneralThreads, smem, s>>>(
+        t, hi, lo, p, o, n, start, static_cast<int>(rows), l);
+  }
   return static_cast<int>(cudaGetLastError());
 }

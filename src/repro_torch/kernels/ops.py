@@ -5,10 +5,9 @@ the port's kernels.
   ``kernels/hash_points.py``);
 * :func:`sketch_update_fused` — hash + signed accumulate into a fresh
   (R, C) table added to the sketch's (K7, ``kernels/sketch_update.py``);
-* :func:`sketch_estimate_mxu` — the signed per-row gather (K8,
-  ``kernels/sketch_estimate.py``), then the median over rows
-  (``sketch.median_rows``: the mean of the two middle rows for even R,
-  as ``jnp.median``; ``torch.median`` would return the lower).
+* :func:`sketch_estimate_mxu` — hash, signed per-row gather and the
+  median over rows in one kernel (K8, ``kernels/sketch_estimate.py``;
+  the mean of the two middle rows for even R, as ``jnp.median``).
 
 CUDA tensors launch the kernels or raise; CPU tensors take their plain
 twins.  The reference's ``use_kernel``, ``interpret`` and TPU tile sizes
@@ -29,12 +28,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core import hashing, sketch as sketch_mod
 from repro_torch.core.hashing import MulShiftParams
 from repro_torch.core.quantize import GridSpec
 from repro_torch.core.sketch import CountSketch
 from repro_torch.kernels import hash_points as _hp
-from repro_torch.kernels.sketch_estimate import sketch_estimate
+from repro_torch.kernels.sketch_estimate import estimate
 from repro_torch.kernels.sketch_update import sketch_update
 
 
@@ -68,7 +66,5 @@ def sketch_estimate_mxu(sk: CountSketch, key_hi: torch.Tensor,
                         key_lo: torch.Tensor) -> torch.Tensor:
     """Median over rows of the signed table values at the keys' buckets,
     (Q,) float32."""
-    buckets, signs = hashing.hashes(sk.params, key_hi, key_lo, sk.log2_cols)
-    est = sketch_estimate(sk.table.to(torch.float32).contiguous(),
-                          buckets.contiguous(), signs.contiguous())
-    return sketch_mod.median_rows(est)
+    return estimate(sk.table.to(torch.float32).contiguous(), sk.params,
+                    key_hi.contiguous(), key_lo.contiguous())

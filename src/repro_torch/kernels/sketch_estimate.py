@@ -1,22 +1,29 @@
-"""Signed per-row gather from a Count Sketch table (K8): the CUDA kernel
-and its plain twin.
+"""Count Sketch point estimates (K8): the fused CUDA kernel and its plain
+twin.
 
-For an (R, C) float32 table and (R, Q) int64 buckets and signs, the
-result is (R, Q) float32 ``sign·table[r, bucket]``: ``sketch.estimate``
-before its median over rows, and the reference's
-``repro.kernels.sketch_estimate`` behind ``ops.sketch_estimate_mxu``.
+For an (R, C = 2**l) float32 table and the R hashes it was built with,
+the estimate of a 64-bit key is the median over rows of
+``sign_r(key)·table[r, bucket_r(key)]``: ``sketch.estimate``, and the
+reference's ``repro.kernels.sketch_estimate`` behind
+``ops.sketch_estimate_mxu`` with the median ``ops.py`` takes after it.
 
-* :func:`sketch_estimate_cuda` launches ``csrc/sketch.cu`` (one thread
-  per (r, q); the source note says what bounds it).  CUDA tensors only.
-  Buckets must lie in [0, C) (``hashing.hashes`` output at the table's
-  log2 columns); that is the caller's contract, not checked here, as
-  checking would wait on the card.
-* :func:`sketch_estimate_torch` is the plain version, ``torch.gather``
-  times the signs (``repro.kernels.ref.sketch_estimate``).
-* :func:`sketch_estimate` dispatches by device: a CUDA tensor launches
-  the kernel or raises, a CPU tensor takes the twin.
+* :func:`estimate_cuda` launches ``csrc/sketch.cu`` for explicit keys
+  (uint32 limbs in int64), :func:`estimate_range_cuda` for the keys
+  (0, start + j), j < n, written into the caller's (n,) slice: one
+  thread a query hashes, gathers its R cells and takes the median in
+  registers (the source note says what bounds it).  CUDA tensors only;
+  R in [1, :data:`MAX_ROWS`], other R raise ``ValueError``.
+* :func:`estimate_torch` and :func:`estimate_range_torch` are the plain
+  versions, the chain the kernel replaced: ``hashing.hashes`` →
+  :func:`sketch_estimate_torch` (the (R, Q) signed gather,
+  ``repro.kernels.ref.sketch_estimate``) → :func:`median_rows`.
+* :func:`estimate` and :func:`estimate_range` dispatch by device: a
+  CUDA table launches the kernel or raises, a CPU table takes the twin.
 
-The two agree bit for bit (a product with ±1 is exact).
+The two agree bit for bit, signed zeros included: a product with ±1 is
+exact, and the kernel's median ranks the values as :func:`median_rows`'
+stable sort orders them and rounds the mean of the middle two as it
+does.
 """
 from __future__ import annotations
 
@@ -24,56 +31,158 @@ import ctypes
 
 import torch
 
+from repro_torch.core import hashing
+from repro_torch.core.hashing import MulShiftParams
 from repro_torch.kernels import _build
+from repro_torch.kernels.hash_points import check_log2_cols, check_params
 
-# (table, buckets, signs, out, rows, cols, q, stream)
-_SIG = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+# (table, key_hi, key_lo, six param limbs, out, n, start, rows, log2_cols,
+#  stream)
+_SIG = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+# the kernel's kMaxEstimateRows: R other than 8 and 16 keeps a block's
+# values in shared memory, which holds 64 columns of up to 128 rows
+MAX_ROWS = 128
+# implicit keys are (0, start + j) with a uint32 low limb
+_KEY_SPACE = 1 << 32
 
 
-def sketch_estimate_cuda(table: torch.Tensor, buckets: torch.Tensor,
-                         signs: torch.Tensor) -> torch.Tensor:
-    """(R, Q) signed table values by the hand-written kernel."""
-    ts = (table, buckets, signs)
-    if not all(t.is_cuda for t in ts):
-        raise ValueError("sketch_estimate_cuda takes CUDA tensors; got "
-                         + ", ".join(str(t.device) for t in ts))
-    if len({t.device for t in ts}) != 1:
-        raise ValueError("sketch_estimate: tensors on different devices")
-    if table.dtype != torch.float32:
-        raise ValueError(f"sketch_estimate: table must be float32, got "
-                         f"{table.dtype}")
-    if buckets.dtype != torch.int64 or signs.dtype != torch.int64:
-        raise ValueError(f"sketch_estimate: buckets and signs must be int64, "
-                         f"got {buckets.dtype} and {signs.dtype}")
-    if table.dim() != 2 or buckets.dim() != 2 or \
-            buckets.shape[0] != table.shape[0] or signs.shape != buckets.shape:
-        raise ValueError(f"sketch_estimate: need table (R, C) and buckets and "
-                         f"signs (R, Q); got {tuple(table.shape)}, "
-                         f"{tuple(buckets.shape)}, {tuple(signs.shape)}")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("sketch_estimate: tensors must be contiguous")
-    r, c = table.shape
-    q = buckets.shape[1]
-    out = torch.empty((r, q), dtype=torch.float32, device=table.device)
-    if r and q:
-        fn = _build.entry("sketch", "sketch_estimate_f32", _SIG)
-        _build.launch("sketch_estimate_table", fn, table.device,
-                      table.data_ptr(), buckets.data_ptr(), signs.data_ptr(),
-                      out.data_ptr(), r, c, q)
-    return out
+def median_rows(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.median(x, axis=0)``: a stable sort (−0.0 and +0.0 equal, in
+    row order), then the mean of the two middle values as (low + high) *
+    0.5 (``torch.median`` returns the lower)."""
+    s = torch.sort(x, dim=0, stable=True)[0]
+    r = x.shape[0]
+    return (s[(r - 1) // 2] + s[r // 2]) * 0.5
 
 
 def sketch_estimate_torch(table: torch.Tensor, buckets: torch.Tensor,
                           signs: torch.Tensor) -> torch.Tensor:
-    """Plain version: the per-row gather times the signs, float32."""
+    """(R, Q) ``sign·table[r, bucket]`` in float32: the per-row gather
+    times the signs."""
     return torch.gather(table, 1, buckets).to(torch.float32) \
         * signs.to(torch.float32)
 
 
-def sketch_estimate(table: torch.Tensor, buckets: torch.Tensor,
-                    signs: torch.Tensor) -> torch.Tensor:
-    """(R, Q) ``sign·table[r, bucket]``: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+def _log2_cols(op: str, table: torch.Tensor) -> int:
+    cols = int(table.shape[1])
+    if cols & (cols - 1):
+        raise ValueError(f"{op}: the table needs a power-of-two column "
+                         f"count, got {cols}")
+    return cols.bit_length() - 1
+
+
+def _check_range(op: str, start: int, n: int) -> None:
+    if start < 0 or start + n > _KEY_SPACE:
+        raise ValueError(f"{op}: the keys (0, start + j) need 0 <= start and "
+                         f"start + n <= 2^32; got start {start}, n {n}")
+
+
+def _check_table(op: str, table: torch.Tensor, params: MulShiftParams,
+                 tensors) -> int:
+    """Device, dtype, shape and layout of everything the kernel reads;
+    returns log2 C."""
+    ts = (table, *tensors)
+    if not all(t.is_cuda for t in ts):
+        raise ValueError(f"{op} takes CUDA tensors; got "
+                         + ", ".join(str(t.device) for t in ts))
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{op}: tensors on different devices")
+    check_params(op, params, table.device)
+    if params.rows > MAX_ROWS:
+        raise ValueError(f"{op}: the kernel takes R <= {MAX_ROWS}, got "
+                         f"{params.rows}")
+    if table.dtype != torch.float32:
+        raise ValueError(f"{op}: table must be float32, got {table.dtype}")
+    if table.dim() != 2 or table.shape[0] != params.rows:
+        raise ValueError(f"{op}: need table ({params.rows}, C); got "
+                         f"{tuple(table.shape)}")
+    log2_cols = _log2_cols(op, table)
+    check_log2_cols(op, log2_cols)
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{op}: tensors must be contiguous")
+    return log2_cols
+
+
+def _launch(table, params, key_hi, key_lo, out, start, log2_cols):
+    fn = _build.entry("sketch", "sketch_estimate_median_f32", _SIG)
+    _build.launch("sketch_estimate_table", fn, table.device,
+                  table.data_ptr(), key_hi, key_lo,
+                  *(p.data_ptr() for p in params), out.data_ptr(),
+                  out.shape[0], start, params.rows, log2_cols)
+
+
+def estimate_cuda(table: torch.Tensor, params: MulShiftParams,
+                  key_hi: torch.Tensor, key_lo: torch.Tensor
+                  ) -> torch.Tensor:
+    """(Q,) float32 estimates of the keys by the hand-written kernel."""
+    op = "sketch_estimate"
+    log2_cols = _check_table(op, table, params, (key_hi, key_lo))
+    if key_hi.dtype != torch.int64 or key_lo.dtype != torch.int64:
+        raise ValueError(f"{op}: keys must be int64 limbs, got "
+                         f"{key_hi.dtype} and {key_lo.dtype}")
+    q = key_hi.shape[0]
+    if key_hi.shape != (q,) or key_lo.shape != (q,):
+        raise ValueError(f"{op}: need keys (Q,); got {tuple(key_hi.shape)}, "
+                         f"{tuple(key_lo.shape)}")
+    out = torch.empty((q,), dtype=torch.float32, device=table.device)
+    if q:
+        _launch(table, params, key_hi.data_ptr(), key_lo.data_ptr(), out, 0,
+                log2_cols)
+    return out
+
+
+def estimate_range_cuda(table: torch.Tensor, params: MulShiftParams,
+                        start: int, out: torch.Tensor) -> torch.Tensor:
+    """The estimates of the keys (0, start + j), j < n, by the
+    hand-written kernel, written into ``out`` ((n,) float32); returns
+    ``out``."""
+    op = "sketch_estimate_range"
+    log2_cols = _check_table(op, table, params, (out,))
+    if out.dtype != torch.float32 or out.dim() != 1:
+        raise ValueError(f"{op}: out must be (n,) float32, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    n = out.shape[0]
+    _check_range(op, start, n)
+    if n:
+        _launch(table, params, None, None, out, start, log2_cols)
+    return out
+
+
+def estimate_torch(table: torch.Tensor, params: MulShiftParams,
+                   key_hi: torch.Tensor, key_lo: torch.Tensor
+                   ) -> torch.Tensor:
+    """Plain version: hash, signed gather, median over rows; (Q,)
+    float32."""
+    buckets, signs = hashing.hashes(params, key_hi, key_lo,
+                                    _log2_cols("sketch_estimate", table))
+    return median_rows(sketch_estimate_torch(table, buckets, signs))
+
+
+def estimate_range_torch(table: torch.Tensor, params: MulShiftParams,
+                         start: int, n: int) -> torch.Tensor:
+    """Plain version of :func:`estimate_range_cuda`: builds the keys (0,
+    start + j), j < n, and estimates them; (n,) float32."""
+    _check_range("sketch_estimate_range", start, n)
+    lo = torch.arange(start, start + n, dtype=torch.int64,
+                      device=table.device)
+    return estimate_torch(table, params, torch.zeros_like(lo), lo)
+
+
+def estimate(table: torch.Tensor, params: MulShiftParams,
+             key_hi: torch.Tensor, key_lo: torch.Tensor) -> torch.Tensor:
+    """(Q,) median over rows of ``sign·table[r, bucket]`` at the keys: the
+    kernel for a CUDA table, the plain version for a CPU table."""
     if table.is_cuda:
-        return sketch_estimate_cuda(table, buckets, signs)
-    return sketch_estimate_torch(table, buckets, signs)
+        return estimate_cuda(table, params, key_hi, key_lo)
+    return estimate_torch(table, params, key_hi, key_lo)
+
+
+def estimate_range(table: torch.Tensor, params: MulShiftParams, start: int,
+                   out: torch.Tensor) -> torch.Tensor:
+    """The estimates of the keys (0, start + j), j < n, into ``out``
+    ((n,) float32): the kernel for a CUDA table, the plain version for a
+    CPU table.  Returns ``out``."""
+    if table.is_cuda:
+        return estimate_range_cuda(table, params, start, out)
+    return out.copy_(estimate_range_torch(table, params, start,
+                                          out.shape[0]))

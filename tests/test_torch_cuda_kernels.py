@@ -44,7 +44,12 @@ Tolerances, as chip_smoke.py holds the kernels:
   warp), a streaming chunk's layout (live prefix, dead suffix of value
   0), groups of 32 with one live item; no −0.0 in a table that starts at
   +0.0.
-* K8 sketch_estimate_table: bit-exact (a product with ±1 is exact)."""
+* K8 sketch_estimate_table (hash, signed gather and median over rows in
+  one kernel): bit-exact by int32 view, signed zeros included (a product
+  with ±1 is exact; the median ranks values as the plain version's stable
+  sort orders them and rounds the mean of the middle two as it does);
+  explicit keys and the keys (0, start + j) into a caller's slice, R ∈
+  {1, 3, 8, 16, 40}."""
 import ctypes
 import math
 
@@ -791,29 +796,59 @@ def test_sketch_update_group_with_one_live_item(card):
     assert int((got != 0).sum()) <= 16 * len(live)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,l2c,q", [(16, 18, 40_000), (3, 6, 1000),
-                                        (1, 22, 7), (4, 8, 0)])
-def test_sketch_estimate_kernel_matches_plain(card, rows, l2c, q):
-    params = _params(rows, q)
-    hi, lo = _keys(q, q, universe=10 ** 9)
-    b, s = hashing.hashes(params, hi, lo, l2c)
+def _estimate_table(rows, l2c, seed):
+    """Values ~100, a third of the cells 0 (so −0.0 comes out under a
+    negative sign) and a fifth small integers (ties across rows)."""
     table = torch.randn((rows, 1 << l2c), generator=torch.Generator(
-    ).manual_seed(q)) * 100
-    table[:, ::3] = 0.0                             # signed zeros come out
+    ).manual_seed(seed)) * 100
+    table[:, ::3] = 0.0
+    table[:, 1::5] = table[:, 1::5].round().clamp(-2, 2)
+    return table
+
+
+def _same_bits(got, want):
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,l2c", [(0, 18), (7, 22), (1000, 6),
+                                   (40_000, 18), (40_000, 22)])
+@pytest.mark.parametrize("rows", [1, 3, 8, 16, 40])
+def test_sketch_estimate_kernel_matches_plain(card, rows, q, l2c):
+    """Both key sources, one launch each: explicit keys and the keys (0,
+    start + j) from a start past 0 into a slice of a larger tensor; by
+    int32 view against the plain version on the CPU, signed zeros
+    included.  R 8 and 16 take the register kernel, the rest the general
+    one (40: past a warp of triples)."""
+    params = _params(rows, q + l2c)
+    hi, lo = _keys(q, q, universe=max(q // 3, 1))
+    table = _estimate_table(rows, l2c, q)
+    dt, dp = table.to(card), params.to(card)
     before = LAUNCHES["sketch_estimate_table"]
-    got = se_mod.sketch_estimate(table.to(card), b.to(card), s.to(card))
+    got = se_mod.estimate(dt, dp, hi.to(card), lo.to(card))
     torch.cuda.synchronize()
     assert LAUNCHES["sketch_estimate_table"] == before + (q > 0)
-    want = se_mod.sketch_estimate_torch(table, b, s)
-    assert torch.equal(got.cpu(), want)
-    assert torch.equal(torch.signbit(got.cpu()), torch.signbit(want))
+    want = se_mod.estimate_torch(table, params, hi, lo)
+    _same_bits(got, want)
+    if q == 40_000:                                 # −0.0 estimates come out
+        assert bool((want.view(torch.int32) == -(1 << 31)).any())
+    start, pad = (1 << 31) - q // 2, 5
+    out = torch.full((q + 2 * pad,), 7.0, device=card)
+    before = LAUNCHES["sketch_estimate_table"]
+    se_mod.estimate_range(dt, dp, start, out[pad:pad + q])
+    torch.cuda.synchronize()
+    assert LAUNCHES["sketch_estimate_table"] == before + (q > 0)
+    _same_bits(out[pad:pad + q], se_mod.estimate_range_torch(
+        table, params, start, q))
+    assert bool((out[:pad] == 7.0).all() and (out[pad + q:] == 7.0).all())
 
 
 @pytest.mark.cuda
 def test_sketch_module_and_ops_run_the_kernels(card):
-    """sketch.update / estimate and the three ops wrappers launch K6-K8
-    on CUDA tensors and agree with their CPU runs bit for bit."""
+    """sketch.update / estimate / tensor_sketch_estimate and the three
+    ops wrappers launch K6-K8 on CUDA tensors (one K8 launch a call) and
+    agree with their CPU runs bit for bit."""
     grid, pts = _hash_case(20_000, 4, 16, 1)
     params = _params(8, 2)
     sk0 = sketch.init(params, 12)
@@ -825,22 +860,26 @@ def test_sketch_module_and_ops_run_the_kernels(card):
     est = sketch.estimate(sk, kh[:500].to(card), kl[:500].to(card))
     fused = ops.sketch_update_fused(dev, kh.to(card), kl.to(card))
     mxu = ops.sketch_estimate_mxu(fused, kh[:500].to(card), kl[:500].to(card))
+    dense = sketch.tensor_sketch_estimate(sk, 3000)
     hb, hs = ops.hash_points(params.to(card), grid, pts.to(card), 12)
     torch.cuda.synchronize()
     assert dict(LAUNCHES) == {"sketch_update_table": 2,
-                              "sketch_estimate_table": 2, "hash_points": 1}
+                              "sketch_estimate_table": 3, "hash_points": 1}
     assert float(dev.table.abs().sum()) == 0.0     # update copies
     cpu = sketch.update(sk0, kh, kl)
     assert torch.equal(sk.table.cpu(), cpu.table)
     assert torch.equal(fused.table.cpu(), cpu.table)
     want = sketch.estimate(cpu, kh[:500], kl[:500])
-    assert torch.equal(est.cpu(), want) and torch.equal(mxu.cpu(), want)
+    _same_bits(est, want)
+    _same_bits(mxu, want)
+    _same_bits(dense, sketch.tensor_sketch_estimate(cpu, 3000))
     wb, ws = hashing.hashes(params, kh, kl, 12)
     assert torch.equal(hb.cpu(), wb) and torch.equal(hs.cpu(), ws)
 
 
 @pytest.mark.cuda
 def test_sketch_kernel_wrappers_reject_bad_inputs(card):
+    before = LAUNCHES["sketch_estimate_table"]
     params = _params(4, 0).to(card)
     grid, pts = _hash_case(10, 3, 8, 0)
     pts = pts.to(card)
@@ -877,10 +916,32 @@ def test_sketch_kernel_wrappers_reject_bad_inputs(card):
     with pytest.raises(ValueError, match="hash params"):
         hp_mod.hash_points_cuda(params._replace(b_lo=params.b_lo.int()),
                                 grid, pts, 8)
-    b = torch.zeros((4, 5), dtype=torch.int64, device=card)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        se_mod.sketch_estimate_cuda(table, b.cpu(), b)
+        se_mod.estimate_cuda(table, params, k.cpu(), k)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        se_mod.estimate_range_cuda(table.cpu(), params, 0, v)
     with pytest.raises(ValueError, match="int64"):
-        se_mod.sketch_estimate_cuda(table, b.int(), b)
+        se_mod.estimate_cuda(table, params, k.int(), k)
+    with pytest.raises(ValueError, match="float32"):
+        se_mod.estimate_cuda(table.double(), params, k, k)
+    with pytest.raises(ValueError, match="float32"):
+        se_mod.estimate_range_cuda(table, params, 0, v.double())
     with pytest.raises(ValueError, match="need table"):
-        se_mod.sketch_estimate_cuda(table, b[:3], b[:3])
+        se_mod.estimate_cuda(table[:3], params, k, k)
+    with pytest.raises(ValueError, match="power-of-two"):
+        se_mod.estimate_cuda(table[:, :100].contiguous(), params, k, k)
+    with pytest.raises(ValueError, match="contiguous"):
+        se_mod.estimate_cuda(table[:, ::2], params, k, k)
+    with pytest.raises(ValueError, match="contiguous"):
+        se_mod.estimate_range_cuda(table, params, 0,
+                                   torch.ones(10, device=card)[::2])
+    with pytest.raises(ValueError, match="need keys"):
+        se_mod.estimate_cuda(table, params, k[None], k[None])
+    with pytest.raises(ValueError, match="hash params"):
+        se_mod.estimate_cuda(table, strided, k, k)
+    with pytest.raises(ValueError, match="2\\^32"):
+        se_mod.estimate_range_cuda(table, params, (1 << 32) - 4, v)
+    wide = _params(129, 0).to(card)
+    with pytest.raises(ValueError, match="R <= 128"):
+        se_mod.estimate_cuda(torch.zeros((129, 256), device=card), wide, k, k)
+    assert LAUNCHES["sketch_estimate_table"] == before

@@ -78,6 +78,32 @@ def test_median_matches_jnp_median():
                  ) == 2.5
 
 
+@pytest.mark.parametrize("column", [
+    [0.0, -0.0, -0.0, 5.0], [-0.0, -0.0, 0.0, 5.0],
+    [5.0, 0.0, -0.0, -0.0, -3.0, 0.0]])
+def test_median_rows_signed_zeros_match_jnp_median(column):
+    """−0.0 and +0.0 compare equal and keep their row order in both
+    sorts, so the sign of a zero median follows the rows' order: by int32
+    view, [0, −0, −0, 5] gives −0.0 and [−0, −0, 0, 5] gives +0.0."""
+    x = np.array(column, np.float32)[:, None]
+    want = np.asarray(jnp.median(jnp.asarray(x), axis=0))
+    got = sketch.median_rows(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(want.view(np.int32), got.view(np.int32))
+
+
+def test_median_rows_signed_zeros_at_r16():
+    """64 columns of R = 16: ten zeros of random signs around the middle
+    ranks, three values on each side."""
+    rng = np.random.default_rng(4)
+    base = np.array([-3, -2, -1, 1, 2, 3] + [0] * 10, np.float32)
+    x = np.stack([rng.permutation(base) for _ in range(64)], axis=1)
+    x[x == 0] *= rng.choice([-1.0, 1.0], size=int((x == 0).sum()))
+    want = np.asarray(jnp.median(jnp.asarray(x), axis=0))
+    got = sketch.median_rows(torch.from_numpy(x)).numpy()
+    assert np.signbit(want).any() and not np.signbit(want).all()
+    np.testing.assert_array_equal(want.view(np.int32), got.view(np.int32))
+
+
 def test_sketch_table_and_estimates_bit_identical():
     hi, lo = _tied_keys(3)
     params = par.hash_params(5, 8)
