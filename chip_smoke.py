@@ -208,7 +208,45 @@ Phases, each failing the run (non-zero exit) if it fails:
                  1e-5·max|table| of the float64 plain version and K8's
                  first chunk equal to its plain version by int32 view;
                  K7 and K8 timed at T3's chunk (``per_call.train`` of
-                 the kernels line).
+                 the kernels line);
+16. lm-mesh    — the LM stack's training on a mesh (``launch/sharding.py``:
+                 FSDP over "data", TP and EP over "model"), path M's
+                 layouts (4 gloo ranks sharing the card as a (2, 2)
+                 ("data", "model") mesh, 1 nccl rank as (1, 1), 4 nccl
+                 ranks where there are 4 cards), each rank a spawned
+                 process with the kernels built by this one; every gate
+                 holds on every rank: (a) every SMOKE config in f32
+                 (AdamW; Adafactor too on mamba2-130m and jamba), the act
+                 modes in turn: one sharded step against one device's on
+                 the same card from the same weights, the loss within
+                 TRAIN_TWIN_LOSS_TOL relative, each gradient block within
+                 TRAIN_TWIN_GRAD_TOL·max|g_leaf|, weights within 1e-3·lr
+                 where |g| is sure and LM_MESH_FLIP everywhere, an MoE
+                 model's dropped share exactly;
+                 (b) llama3.2-3b at full width, depth 2, B 2 x S 256, and
+                 qwen3-moe-235b-a22b at full width, depth 1, B 2 x S 128
+                 (the sequence cut), f32: loss and gradients the same
+                 way; (c) M-T1, llama3.2-3b bf16 AdamW remat B 4 x S 2048
+                 (2 layers on gloo4, all 28 otherwise): the first step
+                 twice from one draw with equal loss bits, 3 timed steps
+                 (ms, tokens/s, collectives' ms, peak and reserved memory
+                 a rank); (d) M-T3, tinyllama-1.1b (11 layers on gloo4)
+                 with Count-Sketch gradients on a data-only mesh through
+                 ``compress_and_reduce(axis_names=, mesh=)``: K7 = K8 =
+                 ceil(n / TENSOR_CHUNK) a rank a step (counted under
+                 ``LM:<layout>:T3:<step>:r<rank>``), the round's ms, then
+                 one more round's sketch, merge and decompress ms apart;
+                 the merged float table the same bits on every rank and
+                 within (W - 1)·2⁻²⁴·Σ_w |table_w| of the float64 sum of
+                 the ranks' tables, on integer-valued gradients equal to
+                 one device's sketch of the summed gradient bit for bit;
+                 (e) on 4 cards, M-J, jamba-v0.1-52b at full width, 8
+                 layers, bf16 AdamW, B 4 x S 2048: step ms, tokens/s,
+                 peak a card (and after the draw); (f) a
+                 Trainer's checkpoints on the mesh restored onto one
+                 device equal to the gathered shards, and a resume on the
+                 mesh bit-exact.  ``--only lm-mesh [--layouts ...]`` runs
+                 this phase alone.
 
 Prints the nvidia-smi name/power-limit line, then one
 ``{"kernels": [...]}`` line (nine entries: K1-K4, K5a, K5b, K6-K8), then ``{"ok": true, "device": ...}`` last.
@@ -2545,7 +2583,8 @@ def phase_mesh(device, pts, pts_np, spec, ref_a, layouts=None):
             tmp = root / name
             tmp.mkdir()
             t0 = time.perf_counter()
-            reps = run_ranks(ctx, world, backend, shared, tmp, tsne_iters)
+            reps = run_ranks(ctx, world, backend, shared, tmp,
+                             (tsne_iters,))
             wall = time.perf_counter() - t0
             mesh_gates(name, world, reps, table, n, n_epochs, spec.n_clusters,
                        wall, smi)
@@ -2555,20 +2594,23 @@ def phase_mesh(device, pts, pts_np, spec, ref_a, layouts=None):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def run_ranks(ctx, world, backend, shared, tmp, d_iters):
-    """Spawn ``world`` ranks and return their reports by rank.  A rank
-    that fails or outlives MESH_TIMEOUT_S fails the run; every rank is
+def run_ranks(ctx, world, backend, shared, tmp, extra, target=None,
+              timeout=MESH_TIMEOUT_S):
+    """Spawn ``world`` ranks of ``target`` (default: path M's
+    :func:`mesh_rank`; called as ``target(rank, world, backend, shared,
+    tmp, *extra, queue)``) and return their reports by rank.  A rank that
+    fails or outlives ``timeout`` seconds fails the run; every rank is
     stopped before this returns or raises."""
     import queue as queue_mod
     q = ctx.Queue()
-    procs = [ctx.Process(target=mesh_rank,
-                         args=(r, world, backend, shared, str(tmp), d_iters,
+    procs = [ctx.Process(target=target or mesh_rank,
+                         args=(r, world, backend, shared, str(tmp), *extra,
                                q))
              for r in range(world)]
     for p in procs:
         p.start()
     reports, errors = {}, []
-    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    deadline = time.perf_counter() + timeout
     try:
         while len(reports) + len(errors) < world and not errors:
             try:
@@ -2576,7 +2618,7 @@ def run_ranks(ctx, world, backend, shared, tmp, d_iters):
                     timeout=max(1.0, deadline - time.perf_counter()))
             except queue_mod.Empty:
                 raise AssertionError(
-                    f"[mesh] ranks timed out after {MESH_TIMEOUT_S} s: "
+                    f"[mesh] ranks timed out after {timeout} s: "
                     f"{world - len(reports)} of {world} did not report")
             if status == "ok":
                 reports[rank] = body
@@ -3825,6 +3867,892 @@ def phase_train(device):
     return rows
 
 
+# ---------------------------------------------------------------- lm-mesh
+LM_MESH_TIMEOUT_S = 600             # lm-mesh: a layout's ranks, at most
+LM_MESH_ACT_MODES = ("embed_tp", "seq_tp", "dp_only")
+LM_MESH_ADAFACTOR = ("mamba2-130m", "jamba-v0.1-52b")
+# (a) a weight whose tiny gradient flips sign moves by 2·lr, plus the f32
+# rounding of the weights it is the difference of
+LM_MESH_FLIP = 2 * TRAIN_TWIN_LR * (1 + 1e-5)
+# (a) every SMOKE config in f32; B 4 so that each data rank has rows
+LM_MESH_SMOKE = dict(batch=4, seq=32)
+# (b) full width in f32, without remat (the gradients' bits are remat's,
+# and the gloo ranks would gather the weights through the host again):
+# llama3.2-3b depth 2 at phase train's `train_twin` shape with B 2 (a row
+# a data rank); qwen3-moe depth 1, the sequence cut to 128 (its 3.7e9 f32
+# weights are 15 GB, as much again in gradients, and the single-device
+# twin's copy besides)
+LM_MESH_WIDE = (("llama3.2-3b", 2, 2, 256), ("qwen3-moe-235b-a22b", 1, 2,
+                                            128))
+# (b): ranks sharing a card compute one device's twin together when
+# their f32 weights, gradients and blocks take this much, else in turns
+LM_MESH_TWINS_TOGETHER_BYTES = 60e9
+# (c) M-T1: llama3.2-3b bf16, AdamW, remat, B 4 x S 2048, a warm-up step
+# then 3 timed; gloo ranks sharing one card train LM_MESH_T1_GLOO_LAYERS
+LM_MESH_T1 = dict(batch=4, seq=2048, steps=3)
+LM_MESH_T1_GLOO_LAYERS = 2
+# (d) M-T3: tinyllama-1.1b with Count-Sketch gradients on a data-only mesh;
+# four replicas on one card train LM_MESH_T3_GLOO_LAYERS of its 22 layers
+LM_MESH_T3 = dict(batch=4, seq=2048, steps=2, rows=8, log2_cols=20,
+                  top_k=10_000, momentum=0.9, lr=1e-4)
+LM_MESH_T3_GLOO_LAYERS = 11
+# (e) M-J: jamba-v0.1-52b at full width, one superblock of 8 layers, on
+# four cards: a card holds 40 GB of states (its quarter of 13.3e9 bf16
+# weights and gradients, f32 AdamW moments), the superblock's weights
+# gathered over "data" for its backward (13 GB) and the activations; S
+# 2048 uncut (68.27 GiB a card at its peak on an H100 80GB)
+LM_MESH_J = dict(batch=4, seq=2048, steps=3, layers=8)
+
+
+def lm_mesh_plan(device_type="cuda", smoke_only=False):
+    """What lm-mesh runs; the CPU rehearsal cuts it to SMOKE shapes."""
+    return dict(device_type=device_type, smoke_only=smoke_only,
+                smoke=LM_MESH_SMOKE, wide=LM_MESH_WIDE, t1=LM_MESH_T1,
+                t1_gloo_layers=LM_MESH_T1_GLOO_LAYERS, t3=LM_MESH_T3,
+                t3_gloo_layers=LM_MESH_T3_GLOO_LAYERS, jamba=LM_MESH_J)
+
+
+def lm_mesh_rank(rank, world, backend, shared, tmp, plan, queue):
+    """One rank of phase lm-mesh (a spawned process): puts (rank, "ok",
+    its report) or (rank, "error", the traceback) on ``queue``."""
+    import traceback
+    try:
+        queue.put((rank, "ok", _lm_mesh_rank(rank, world, backend, shared,
+                                             Path(tmp), plan)))
+    except Exception:
+        queue.put((rank, "error", traceback.format_exc()))
+        raise
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+class _RankCtx:
+    """A lm-mesh rank's device, meshes and clocks."""
+
+    def __init__(self, rank, world, backend, shared, tmp, plan):
+        import torch
+        from repro_torch.launch.mesh import make_host_mesh
+        self.rank, self.world, self.backend = rank, world, backend
+        self.shared, self.tmp, self.plan = shared, tmp, plan
+        self.cuda = plan["device_type"] == "cuda"
+        if self.cuda:
+            self.dev = torch.device("cuda", 0 if shared else rank)
+            torch.cuda.set_device(self.dev)
+        else:
+            self.dev = torch.device("cpu")
+        shape = (2, world // 2) if world % 2 == 0 else (1, world)
+        self.mesh = make_host_mesh(shape, ("data", "model"), rank=rank,
+                                   init_method=f"file://{tmp / 'rendezvous'}",
+                                   backend=backend)
+        self.dmesh = make_host_mesh((world,), ("data",))
+
+    def sync(self):
+        import torch
+        if self.cuda:
+            torch.cuda.synchronize()
+
+    def barrier(self):
+        import torch.distributed as dist
+        self.sync()
+        dist.barrier()
+
+    def turns(self):
+        """Ranks sharing one card take turns (a barrier after each rank's
+        turn); ranks with a card each all go at once.  Yields True on this
+        rank's turn."""
+        if not self.shared:
+            yield True
+            return
+        for r in range(self.world):
+            yield r == self.rank
+            self.barrier()
+
+    def free(self):
+        import torch
+        gc.collect()
+        if self.cuda:
+            torch.cuda.empty_cache()
+
+
+def _lm_mesh_rank(rank, world, backend, shared, tmp, plan):
+    """Phase lm-mesh on one rank: (a) the SMOKE twins, (b) the full-width
+    twins, (c) M-T1, (d) M-T3, (e) M-J (4 cards), (f) checkpoints.  Each
+    gate raises here; returns the numbers the parent prints and the
+    launches of (d)'s steps."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if shared and plan["device_type"] == "cuda":
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if plan["device_type"] == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    t_start = time.perf_counter()
+    ctx = _RankCtx(rank, world, backend, shared, tmp, plan)
+    rep = {"rank": rank, "secs": {"start": time.perf_counter() - t_start}}
+    parts = [("a", lm_mesh_smoke_twins)]
+    if not plan["smoke_only"]:
+        parts.append(("b", lambda c: [lm_mesh_wide_twin(c, *w)
+                                      for w in plan["wide"]]))
+    parts += [("c", lm_mesh_t1), ("d", lm_mesh_t3)]
+    if world == 4 and not shared:           # a card a rank
+        parts.append(("e", lm_mesh_jamba))
+    parts.append(("f", lm_mesh_ckpt))
+    for key, fn in parts:
+        t0 = time.perf_counter()
+        rep[key] = fn(ctx)
+        rep["secs"][key] = time.perf_counter() - t0
+        if rank == 0:       # progress, should a later part fail
+            log(f"[lm-mesh] {backend}{world} rank 0: ({key}) done in "
+                f"{rep['secs'][key]:.1f} s")
+    return rep
+
+
+def _local_batch(batch, mesh):
+    from repro_torch.launch import sharding as sh
+    specs = sh.batch_pspecs(batch, mesh)
+    return {k: sh.local_shard(v, specs[k], mesh) for k, v in batch.items()}
+
+
+def _leaf_specs(model, mesh, pol):
+    """Each parameter's layout on ``mesh`` (axes it lacks replicated)."""
+    from repro_torch.launch import sharding as sh
+    names = set(mesh.mesh_dim_names)
+    return {n: tuple(a if a in names else None
+                     for a in sh._leaf_spec(n, p.ndim, pol))
+            for n, p in model.named_parameters()}
+
+
+def _draw(cfg, tp, dev, on_card):
+    """The model's weights from seed 0: on the card (a CUDA generator) or
+    on the CPU, then moved there."""
+    import torch
+    from repro_torch.models import model as model_mod
+    gdev = dev if on_card else torch.device("cpu")
+    model = model_mod.init_params(cfg, torch.Generator(device=gdev
+                                                       ).manual_seed(0),
+                                  tp=tp, device=gdev)
+    return model.to(dev)
+
+
+def _digest(model) -> float:
+    """A float64 digest of a model's weights (the sum of every leaf)."""
+    import torch
+    with torch.no_grad():
+        return float(sum(p.detach().double().sum() for p in
+                         model.parameters()))
+
+
+def _same_draw_everywhere(ctx, digest):
+    """Every rank drew the same full weights (their digests, gathered);
+    raises otherwise."""
+    import torch
+    from repro_torch.core import mesh as mesh_mod
+    d = torch.tensor([digest], dtype=torch.float64, device=ctx.dev)
+    every = mesh_mod.all_gather_dim(d, ctx.dmesh, "data", 0)
+    if not bool((every == every[0]).all()):
+        raise AssertionError(f"[lm-mesh] the ranks drew other weights from "
+                             f"the same seed: {every.tolist()}")
+
+
+def _sharded_state(ctx, cfg, tcfg, pol):
+    """The train state of ``cfg`` drawn on the card from seed 0, each part
+    cut to this rank's blocks on ``ctx.mesh`` as it is drawn."""
+    import torch
+    from repro_torch.train import steps
+    return steps.init_train_state(
+        cfg, tcfg, torch.Generator(device=ctx.dev).manual_seed(0),
+        device=ctx.dev, mesh=ctx.mesh, policy=pol)
+
+
+def _grads(cfg, model, batch, remat=True, sync=None):
+    from repro_torch.models import model as model_mod
+    model.requires_grad_(True)
+    model.zero_grad(set_to_none=True)
+    total, met = model_mod.forward_train(cfg, model, batch, remat=remat)
+    total.backward()
+    grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+    if sync is not None:
+        sync(grads)
+    model.zero_grad(set_to_none=True)
+    return float(total.detach()), {k: float(v.detach())
+                                   for k, v in met.items()}, \
+        grads
+
+
+def lm_mesh_twin(ctx, cfg, batch, act_mode, optimizer, on_card,
+                 with_step=True, remat=True):
+    """One sharded forward/backward (and, ``with_step``, train step) of
+    ``cfg`` on ``ctx.mesh`` held to one device's on the same card from the
+    same weights: the loss within TRAIN_TWIN_LOSS_TOL relative, each
+    gradient block within TRAIN_TWIN_GRAD_TOL·max|g_leaf|, the updated
+    weights within 1e-3·lr where |g| > TRAIN_TWIN_SURE·max|g_leaf| and
+    LM_MESH_FLIP everywhere, an MoE model's dropped share exactly.
+    Returns the worst ratios."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import tp_size
+    from repro_torch.train import steps
+
+    mesh, tp = ctx.mesh, tp_size(ctx.mesh)
+    pol = sh.ShardingPolicy(act_mode=act_mode)
+    tcfg = steps.TrainStepConfig(optimizer=optimizer, peak_lr=TRAIN_TWIN_LR,
+                                 warmup_steps=1, total_steps=2)
+    single, model = None, None
+    # one device's run, then the cut; ranks sharing a card take turns
+    # where their full-width copies (weights, gradients, blocks) would not
+    # fit it together
+    t0 = time.perf_counter()
+    together = not on_card or ctx.world * 3 * 4 * cfg.param_count() \
+        <= LM_MESH_TWINS_TOGETHER_BYTES
+    for mine in (True,) if together else ctx.turns():
+        if not mine:
+            continue
+        model = _draw(cfg, tp, ctx.dev, on_card)
+        digest = _digest(model)
+        specs = _leaf_specs(model, mesh, pol)
+        loss, met, grads = _grads(cfg, model, batch, remat=remat)
+        blocks = {n: (sh.local_shard(g, specs[n], mesh).cpu(),
+                      float(g.abs().max())) for n, g in grads.items()}
+        del grads
+        after = None
+        if with_step:
+            st = {"model": model, "opt": steps.init_optimizer(cfg, tcfg,
+                                                               model),
+                  "step": 0}
+            st, _ = steps.make_train_step(cfg, tcfg)(st, batch)
+            after = {n: sh.local_shard(p.detach(), specs[n], mesh).cpu()
+                     for n, p in model.named_parameters()}
+            del st, model
+            ctx.free()
+            model = _draw(cfg, tp, ctx.dev, on_card)
+        sh.shard_model(model, mesh, pol)
+        ctx.free()
+        single = (loss, met, blocks, after, specs)
+    _same_draw_everywhere(ctx, digest)
+    single_s = time.perf_counter() - t0
+    loss, met, blocks, after, specs = single
+    local = _local_batch(batch, mesh)
+    s_loss, s_met, s_grads = _grads(
+        cfg, model, local, remat=remat,
+        sync=lambda g: steps.sync_grads(g, model.specs, mesh))
+    worst = {"loss": abs(s_loss - loss) / abs(loss), "grad": 0.0,
+             "grad_leaf": "", "single_s": single_s}
+    for n, g in s_grads.items():
+        want, scale = blocks[n]
+        e = float((g.float() - want.to(g.device).float()).abs().max()) \
+            / max(scale, 1e-30)
+        if e >= worst["grad"]:
+            worst["grad"], worst["grad_leaf"] = e, n
+    del s_grads
+    if "dropped_frac" in met and s_met["dropped_frac"] != \
+            met["dropped_frac"]:
+        raise AssertionError(f"[lm-mesh] {cfg.arch_id}: dropped share "
+                             f"{s_met['dropped_frac']!r} on the mesh, "
+                             f"{met['dropped_frac']!r} on one device")
+    worst["dropped"] = met.get("dropped_frac")
+    if worst["loss"] > TRAIN_TWIN_LOSS_TOL \
+            or worst["grad"] > TRAIN_TWIN_GRAD_TOL:
+        raise AssertionError(f"[lm-mesh] {cfg.arch_id} {act_mode}: loss "
+                             f"{worst['loss']:.3e} or gradient "
+                             f"{worst['grad']:.3e} "
+                             f"({worst['grad_leaf']}) off one device's")
+    if with_step:
+        st = {"model": model, "opt": steps.init_optimizer(cfg, tcfg,
+                                                           model),
+              "step": 0}
+        st, _ = steps.make_train_step(cfg, tcfg)(st, local)
+        w = 0.0
+        for n, p in model.named_parameters():
+            d = (p.detach().float() - after[n].to(p.device).float()
+                 ).abs()
+            g = blocks[n][0].to(p.device).float().abs()
+            scale = blocks[n][1]
+            sure = g > TRAIN_TWIN_SURE * scale
+            bad = float(d[sure].max()) if bool(sure.any()) else 0.0
+            if bad > 1e-3 * TRAIN_TWIN_LR or float(d.max()) > \
+                    LM_MESH_FLIP:
+                raise AssertionError(
+                    f"[lm-mesh] {cfg.arch_id} {optimizer}: weight {n} "
+                    f"{bad:.3e} off where |g| is sure, {float(d.max()):.3e}"
+                    f" at most (lr {TRAIN_TWIN_LR})")
+            w = max(w, bad / TRAIN_TWIN_LR)
+        worst["step"] = w
+        del st
+    del model
+    ctx.free()
+    return worst
+
+
+def lm_mesh_smoke_twins(ctx):
+    """(a): every SMOKE config in f32 under AdamW (and Adafactor on
+    mamba2-130m and jamba), the act modes in turn."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    out = {}
+    sm = ctx.plan["smoke"]
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        batch = train_batch(cfg, sm["batch"], sm["seq"], 0, ctx.dev)
+        act = LM_MESH_ACT_MODES[i % len(LM_MESH_ACT_MODES)]
+        for opt in ("adamw",) + (("adafactor",) if arch in LM_MESH_ADAFACTOR
+                                 else ()):
+            out[f"{arch} {opt} {act}"] = lm_mesh_twin(ctx, cfg, batch, act,
+                                                      opt, on_card=False)
+    return out
+
+
+def lm_mesh_wide_twin(ctx, arch, layers, batch, seq):
+    """(b): ``arch`` at full width and ``layers`` deep in f32, loss and
+    gradients (weights drawn on the card)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              param_dtype="float32", compute_dtype="float32")
+    b = train_batch(cfg, batch, seq, 0, ctx.dev)
+    t0 = time.perf_counter()
+    w = lm_mesh_twin(ctx, cfg, b, "embed_tp", "adamw", on_card=True,
+                     with_step=False, remat=False)
+    w.update(arch=arch, layers=layers, batch=batch, seq=seq,
+             secs=time.perf_counter() - t0)
+    return w
+
+
+class CollectiveClock:
+    """Times every collective of ``core.mesh`` while open: CUDA events
+    around each call on nccl (the compute stream waits on the
+    collective), the host's clock on gloo (its calls block), after a
+    synchronize of the card (``sync_card``), so that a staged call's
+    copy to the host does not also wait out the card work queued before
+    it.  Calls moving at least BIG bytes are also summed apart."""
+
+    NAMES = ("all_reduce", "all_gather", "all_gather_dim",
+             "reduce_scatter_dim")
+    BIG = 64 << 20
+
+    def __init__(self, cuda_events, sync_card=False):
+        self.cuda_events, self.sync_card = cuda_events, sync_card
+        self.spans, self.host_s, self.calls = [], [], 0
+
+    def __enter__(self):
+        from repro_torch.core import mesh as mesh_mod
+        self.orig = {n: getattr(mesh_mod, n) for n in self.NAMES}
+        for n, fn in self.orig.items():
+            setattr(mesh_mod, n, self._wrap(fn))
+        return self
+
+    def _wrap(self, fn):
+        import torch
+
+        def timed(*a, **k):
+            self.calls += 1
+            t = a[0] if a and isinstance(a[0], torch.Tensor) else None
+            big = t is not None and t.numel() * t.element_size() >= self.BIG
+            if self.cuda_events:
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                self.spans.append((e0, e1, big))
+                return out
+            if self.sync_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.host_s.append((time.perf_counter() - t0, big))
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        from repro_torch.core import mesh as mesh_mod
+        for n, fn in self.orig.items():
+            setattr(mesh_mod, n, fn)
+
+    def ms(self, big_only=False):
+        import torch
+        if self.cuda_events:
+            torch.cuda.synchronize()
+            return sum(a.elapsed_time(b) for a, b, big in self.spans
+                       if big or not big_only)
+        return sum(t for t, big in self.host_s if big or not big_only) * 1e3
+
+    def big_calls(self):
+        return sum(1 for *_, big in (self.spans or self.host_s) if big)
+
+
+def _peak(ctx):
+    import torch
+    if not ctx.cuda:
+        return None, None
+    return (torch.cuda.max_memory_allocated(ctx.dev) / 2**30,
+            torch.cuda.max_memory_reserved(ctx.dev) / 2**30)
+
+
+def _reset_peak(ctx):
+    import torch
+    if ctx.cuda:
+        torch.cuda.reset_peak_memory_stats(ctx.dev)
+
+
+def _timed_steps(ctx, step_fn, state, batches, nccl):
+    """Each step's ms (CUDA events, or the host's clock), its collectives'
+    ms, and those of its calls of CollectiveClock.BIG bytes or more
+    (count, ms)."""
+    import torch
+    ms, coll, big, losses = [], [], [], []
+    for b in batches:
+        with CollectiveClock(nccl, sync_card=ctx.cuda) as clock:
+            ctx.sync()
+            if ctx.cuda:
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, b)
+            if ctx.cuda:
+                e1.record()
+            ctx.sync()
+            ms.append(e0.elapsed_time(e1) if ctx.cuda
+                      else (time.perf_counter() - t0) * 1e3)
+            coll.append(clock.ms())
+            big.append((clock.big_calls(), clock.ms(big_only=True)))
+        losses.append(float(m["loss"]))
+    return state, ms, coll, big, losses
+
+
+def lm_mesh_t1(ctx):
+    """(c) M-T1: llama3.2-3b at full width (depth cut on ranks sharing a
+    card), bf16, AdamW, remat, B 4 x S 2048 over the mesh: the first step
+    twice from the same draw (equal loss bits), then 3 timed steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.train import steps
+
+    p = ctx.plan["t1"]
+    cfg = get_config("llama3.2-3b", smoke=ctx.plan["smoke_only"])
+    if ctx.shared and not ctx.plan["smoke_only"]:
+        cfg = dataclasses.replace(cfg,
+                                  num_layers=ctx.plan["t1_gloo_layers"])
+    seq = p["seq"] if not ctx.plan["smoke_only"] else 64
+    tcfg = steps.TrainStepConfig(optimizer="adamw", remat=True,
+                                 q_chunk=min(1024, seq))
+    pol = sh.ShardingPolicy(act_mode="embed_tp")
+    mesh = ctx.mesh
+    batches = [_local_batch(train_batch(cfg, p["batch"], seq, 4000 + i,
+                                        ctx.dev), mesh)
+               for i in range(p["steps"] + 1)]
+    step_fn = steps.make_train_step(cfg, tcfg)
+    firsts = []
+    for run in range(2):
+        state = _sharded_state(ctx, cfg, tcfg, pol)
+        _reset_peak(ctx)
+        state, ms0, _, _, l0 = _timed_steps(ctx, step_fn, state, batches[:1],
+                                            ctx.backend == "nccl")
+        firsts.append(l0[0])
+        if run == 0:
+            del state
+            ctx.free()
+    if firsts[0] != firsts[1]:
+        raise AssertionError(f"[lm-mesh] M-T1: the first step's loss "
+                             f"{firsts[0]!r} then {firsts[1]!r}")
+    state, ms, coll, big, losses = _timed_steps(ctx, step_fn, state,
+                                                batches[1:],
+                                                ctx.backend == "nccl")
+    peak, reserved = _peak(ctx)
+    n_local = sum(q.numel() for q in state["model"].parameters())
+    del state
+    ctx.free()
+    if not all(math.isfinite(v) for v in losses + firsts):
+        raise AssertionError("[lm-mesh] M-T1: a loss is not finite")
+    return dict(layers=cfg.num_layers, batch=p["batch"], seq=seq,
+                first=firsts[0], losses=losses, ms=ms, coll_ms=coll,
+                big=big, warm_ms=ms0[0], peak_gib=peak, reserved_gib=reserved,
+                local_params=n_local)
+
+
+def _int_grads(model, seed, dev):
+    """Integer-valued gradients in [-3, 3] of ``model``'s shapes, from a
+    generator seeded ``seed``, in the weights' dtype (exact)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {n: torch.randint(-3, 4, p.shape, generator=gen, device=dev
+                             ).to(p.dtype)
+            for n, p in model.named_parameters()}
+
+
+def lm_mesh_t3(ctx):
+    """(d) M-T3: tinyllama-1.1b (depth cut on ranks sharing a card) with
+    Count-Sketch gradients on a data-only mesh of the ranks, through
+    ``compress_and_reduce(axis_names=, mesh=)``: each rank sketches its
+    share of the global batch's gradient (K7), the tables are
+    all-reduced, every rank decompresses the merged table (K8) and
+    applies the same update.  Gates: K7 = K8 = ceil(n / TENSOR_CHUNK) a
+    step; on the last step's gradients, one more round taken apart
+    (sketch, merge, decompress timed each) whose merged table holds the
+    same bits on every rank and lies within (W - 1)·2⁻²⁴·Σ_w |table_w|
+    of the float64 sum of the ranks' tables; on integer-valued gradients
+    the merged table equals one device's sketch of the summed gradient
+    bit for bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import mesh as mesh_mod
+    from repro_torch.core import sketch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import sketch_compress as sc
+
+    p = ctx.plan["t3"]
+    cfg = get_config("tinyllama-1.1b", smoke=ctx.plan["smoke_only"])
+    if ctx.shared and not ctx.plan["smoke_only"]:
+        cfg = dataclasses.replace(cfg,
+                                  num_layers=ctx.plan["t3_gloo_layers"])
+    seq = p["seq"] if not ctx.plan["smoke_only"] else 64
+    ccfg = sc.SketchCompressConfig(rows=p["rows"],
+                                   log2_cols=p["log2_cols"] if not
+                                   ctx.plan["smoke_only"] else 12,
+                                   top_k=p["top_k"] if not
+                                   ctx.plan["smoke_only"] else 100,
+                                   momentum=p["momentum"])
+    dmesh, axes = ctx.dmesh, ("data",)
+    model = model_mod.init_params(
+        cfg, torch.Generator(device=ctx.dev).manual_seed(0), device=ctx.dev,
+        mesh=dmesh, policy=sh.ShardingPolicy(fsdp=False, act_mode="dp_only"))
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    cstate = sc.sketch_compress_init(params, ccfg)
+    n = cstate.error.numel()
+    chunks = -(-n // sketch.TENSOR_CHUNK)
+    out = {"layers": cfg.num_layers, "coords": n, "chunks": chunks,
+           "steps": [], "launches": {}}
+    _reset_peak(ctx)
+    for step in range(p["steps"]):
+        batch = _local_batch(train_batch(cfg, p["batch"], seq, 3000 + step,
+                                         ctx.dev), dmesh)
+        model.zero_grad(set_to_none=True)
+        total, _ = model_mod.forward_train(cfg, model, batch)
+        total.backward()
+        grads = {nm: q.grad for nm, q in params.items()}
+        ctx.sync()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        upd, cstate, density = sc.compress_and_reduce(
+            grads, cstate, ccfg, axis_names=axes, mesh=dmesh)
+        ctx.sync()
+        t1 = time.perf_counter()
+        launches = {op: c for op, c in LAUNCHES.items() if c}
+        out["launches"][step + 1] = launches
+        if ctx.cuda and launches != {"sketch_update_table": chunks,
+                                     "sketch_estimate_table": chunks}:
+            raise AssertionError(f"[lm-mesh] M-T3 step {step + 1}: "
+                                 f"launches {launches}, expected "
+                                 f"{chunks} of K7 and of K8")
+        with torch.no_grad():
+            for nm, q in params.items():
+                q.add_(upd[nm], alpha=-p["lr"])
+        out["steps"].append(dict(loss=float(total.detach()),
+                                 compress_ms=(t1 - t0) * 1e3,
+                                 density=float(density)))
+        del upd
+    # one more round on the last step's gradients, taken apart (its
+    # launches are not the path's)
+    ctx.sync()
+    t0 = time.perf_counter()
+    own = sc.local_sketch(grads, cstate, ccfg)
+    ctx.sync()
+    t1 = time.perf_counter()
+    merged = sketch.psum_merge(own, dmesh, axes)
+    ctx.sync()
+    t2 = time.perf_counter()
+    upd, cstate, _ = sc.decompress(merged, grads, cstate, ccfg)
+    ctx.sync()
+    t3 = time.perf_counter()
+    sketch.tensor_sketch_estimate(merged, n)
+    ctx.sync()
+    t4 = time.perf_counter()
+    del upd, grads
+    model.zero_grad(set_to_none=True)
+    # the merged float table: the same bits on every rank, and within the
+    # rounding of W - 1 float32 adds of the float64 sum of the ranks' own
+    every = mesh_mod.all_gather_dim(own.table[None], dmesh, axes, 0).double()
+    exact = every.sum(dim=0)
+    bound = (ctx.world - 1) * 2.0 ** -24 * every.abs().sum(dim=0)
+    err = (merged.table.double() - exact).abs()
+    within = bool((err <= bound).all())
+    ratio = float((err / bound.clamp(min=1e-300)).max())
+    del every, exact, bound, err
+    bits = merged.table.view(torch.int32).to(torch.int64)
+    digest = torch.stack([bits.sum(), (bits * torch.arange(
+        1, bits.shape[1] + 1, device=bits.device)).sum()]).to(torch.float64)
+    digests = mesh_mod.all_gather_dim(digest[None], dmesh, axes, 0)
+    same_bits = bool((digests == digests[0]).all())
+    del bits, own, merged
+    out["split"] = dict(sketch_ms=(t1 - t0) * 1e3, merge_ms=(t2 - t1) * 1e3,
+                        decompress_ms=(t3 - t2) * 1e3,
+                        estimate_ms=(t4 - t3) * 1e3, err_ratio=ratio,
+                        within=within, same_bits=same_bits)
+    if not (within and same_bits):
+        raise AssertionError(f"[lm-mesh] M-T3: the merged table within "
+                             f"(W - 1)·2^-24·sum|t| of the exact sum "
+                             f"{within} (worst {ratio:.3e} of it), the same "
+                             f"bits on every rank {same_bits}")
+    # integer-valued gradients: the merged table is one device's sketch
+    # of the summed gradient, bit for bit
+    g = _int_grads(model, 500 + ctx.rank, ctx.dev)
+    merged = sc.merged_sketch(g, cstate, ccfg, axes, dmesh).table
+    del g
+    same = True
+    if ctx.rank == 0:
+        total_g = None
+        for r in range(ctx.world):
+            g = _int_grads(model, 500 + r, ctx.dev)
+            total_g = g if total_g is None else {
+                k: total_g[k] + v for k, v in g.items()}
+            del g
+        one = sc.local_sketch(total_g, cstate, ccfg).table
+        same = torch.equal(one, merged)
+        del total_g, one
+    same = bool(mesh_mod.all_reduce(torch.tensor(float(same),
+                                                 device=ctx.dev),
+                                    dmesh, axes, op="min"))
+    out["int_equal"] = same
+    if not same:
+        raise AssertionError("[lm-mesh] M-T3: on integer gradients the "
+                             "merged table is not one device's sketch "
+                             "of the sum")
+    out["peak_gib"], out["reserved_gib"] = _peak(ctx)
+    del model, params, cstate
+    ctx.free()
+    return out
+
+
+def lm_mesh_jamba(ctx):
+    """(e) M-J: jamba-v0.1-52b at full width, 8 layers, bf16, AdamW, remat,
+    B 4 x S 2048 on four cards: 3 timed steps after a warm-up."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.train import steps
+
+    p = dict(ctx.plan["jamba"])
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b",
+                                         smoke=ctx.plan["smoke_only"]),
+                              num_layers=p["layers"])
+    if ctx.plan["smoke_only"]:
+        p["seq"] = 64
+    tcfg = steps.TrainStepConfig(optimizer="adamw", remat=True)
+    mesh = ctx.mesh
+    batches = [_local_batch(train_batch(cfg, p["batch"], p["seq"], 5000 + i,
+                                        ctx.dev), mesh)
+               for i in range(p["steps"] + 1)]
+    _reset_peak(ctx)
+    state = _sharded_state(ctx, cfg, tcfg,
+                           sh.ShardingPolicy(act_mode="embed_tp"))
+    init_peak, _ = _peak(ctx)
+    step_fn = steps.make_train_step(cfg, tcfg)
+    state, ms, coll, big, losses = _timed_steps(ctx, step_fn, state, batches,
+                                                ctx.backend == "nccl")
+    peak, reserved = _peak(ctx)
+    del state
+    ctx.free()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("[lm-mesh] M-J: a loss is not finite")
+    return dict(params=cfg.param_count(), batch=p["batch"], seq=p["seq"],
+                losses=losses, ms=ms, coll_ms=coll, big=big, peak_gib=peak,
+                reserved_gib=reserved, init_peak_gib=init_peak)
+
+
+def lm_mesh_ckpt(ctx):
+    """(f): a Trainer (tinyllama SMOKE, f32, AdamW) on the layout's mesh
+    for 2 steps with a checkpoint after each; rank 0 restores the newest
+    onto one device, equal to the gathered shards bit for bit; a Trainer
+    resumed from step 1 on the same mesh ends with the same bits as the
+    run that was not stopped."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import tp_size
+    from repro_torch.train import steps
+    from repro_torch.train.trainer import Trainer, TrainerConfig, state_tree
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b", smoke=True),
+                              param_dtype="float32", compute_dtype="float32")
+    tcfg = steps.TrainStepConfig(optimizer="adamw", peak_lr=1e-2,
+                                 warmup_steps=1, total_steps=4)
+    mesh = ctx.mesh
+    root = ctx.tmp / "ckpt"
+
+    def batch_fn(s):
+        return train_batch(cfg, 4, 32, 6000 + s, ctx.dev)
+
+    def run(d):
+        rc = TrainerConfig(ckpt_dir=str(root / d), total_steps=2,
+                           ckpt_every=1, log_every=1)
+        tr = Trainer(cfg, tcfg, rc, batch_fn, device=ctx.dev, mesh=mesh,
+                     policy=sh.ShardingPolicy(act_mode="seq_tp"))
+        start = tr.start_step
+        tr.run()
+        return start, state_tree(tr.state, full=True)
+
+    _, a = run("a")
+    if ctx.rank == 0:
+        shutil.copytree(root / "a", root / "b")
+        shutil.rmtree(root / "b" / "step_00000002")
+    ctx.barrier()
+    start, b = run("b")
+    resumed = start == 1 and all(torch.equal(t, b["params"][n])
+                                 for n, t in a["params"].items()) and all(
+        torch.equal(t, b["opt"].m[n]) for n, t in a["opt"].m.items())
+    restored = True
+    if ctx.rank == 0:
+        like = steps.init_train_state(
+            cfg, tcfg, torch.Generator(device=ctx.dev).manual_seed(1),
+            device=ctx.dev, tp=tp_size(mesh))
+        tree = restore_checkpoint(str(root / "a"), 2, state_tree(like))
+        restored = all(torch.equal(t.cpu(), a["params"][n])
+                       for n, t in tree["params"].items()) and all(
+            torch.equal(t.cpu(), a["opt"].v[n])
+            for n, t in tree["opt"].v.items())
+    if not (resumed and restored):
+        raise AssertionError(f"[lm-mesh] (f): resume bit-exact {resumed}, "
+                             f"restore onto one device bit-equal "
+                             f"{restored}")
+    return dict(resumed=resumed, restored=restored)
+
+
+def phase_lm_mesh(device, layouts=None, plan=None):
+    """Phase lm-mesh: the LM stack's training on a mesh (see the module
+    docstring), each layout's ranks spawned (the kernels built by this
+    process), then the gates' prints and (d)'s launches under
+    ``LM:<layout>:T3:<step>:r<rank>``."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    plan = plan or lm_mesh_plan()
+    smi = nvidia_smi_line() if plan["device_type"] == "cuda" else "cpu"
+    if layouts is None:
+        layouts = mesh_layouts(torch.cuda.device_count())
+    gc.collect()
+    if plan["device_type"] == "cuda":
+        torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    root = Path(tempfile.mkdtemp(prefix="lm-mesh-"))
+    k7, k8 = "sketch_update_table", "sketch_estimate_table"
+    try:
+        for name, world, backend, shared in layouts:
+            tmp = root / name
+            tmp.mkdir()
+            t0 = time.perf_counter()
+            reps = run_ranks(ctx, world, backend, shared, tmp, (plan,),
+                             target=lm_mesh_rank, timeout=LM_MESH_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            lm_mesh_report(name, world, reps, wall, smi)
+            for r in reps:
+                for s, ls in r["d"]["launches"].items():
+                    PATH_LAUNCHES[f"LM:{name}:T3:{s}:r{r['rank']}"] = ls
+                    if plan["device_type"] == "cuda" and ls != {
+                            k7: r["d"]["chunks"], k8: r["d"]["chunks"]}:
+                        raise AssertionError(f"[lm-mesh] {name} rank "
+                                             f"{r['rank']} T3 step {s}: "
+                                             f"launches {ls}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[lm-mesh] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def _fmt(v, nd=2):
+    return "n/a" if v is None else f"{v:.{nd}f}"
+
+
+def lm_mesh_report(name, world, reps, wall, smi):
+    """Prints one layout's lm-mesh numbers (the gates ran on the ranks)."""
+    r0 = reps[0]
+    log(f"[lm-mesh] {name}: {world} rank(s), {wall:.1f} s; {smi}; seconds "
+        f"a step of the phase (rank 0): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in r0["secs"].items()))
+    for key, w in r0["a"].items():
+        worst = max((r["a"][key] for r in reps), key=lambda x: x["grad"])
+        log(f"[lm-mesh] {name} (a) {key}: |d loss|/loss "
+            f"{max(r['a'][key]['loss'] for r in reps):.3e}, max |d g|/"
+            f"max|g| {worst['grad']:.3e} ({worst['grad_leaf']}), step "
+            f"{_fmt(max(r['a'][key].get('step', 0) for r in reps), 4)}·lr "
+            f"where |g| is sure"
+            + ("" if w.get("dropped") is None
+               else f", dropped share {w['dropped']!r} on both"))
+    for i, w in enumerate(r0.get("b", ())):
+        g = max(r["b"][i]["grad"] for r in reps)
+        lo = max(r["b"][i]["loss"] for r in reps)
+        log(f"[lm-mesh] {name} (b) {w['arch']} full width, {w['layers']} "
+            f"layer(s), f32, B {w['batch']} x S {w['seq']}: |d loss|/loss "
+            f"{lo:.3e}, max |d g|/max|g| {g:.3e} ({w['grad_leaf']}), "
+            f"{w['secs']:.1f} s (one device's twin and the cut "
+            f"{w['single_s']:.1f} s)")
+    for r in reps:
+        c = r["c"]
+        p50 = statistics.median(c["ms"])
+        tokens = c["batch"] * c["seq"]
+        log(f"[lm-mesh] {name} (c) M-T1 rank {r['rank']}: llama3.2-3b "
+            f"{c['layers']} layers bf16 AdamW remat, B {c['batch']} x S "
+            f"{c['seq']}: first-step loss {c['first']!r} twice; step ms "
+            f"{[round(v, 2) for v in c['ms']]} (warm-up "
+            f"{c['warm_ms']:.2f}), p50 {p50:.2f} ms, {tokens / p50 * 1e3:.0f}"
+            f" tokens/s; collectives ms a step "
+            f"{[round(v, 2) for v in c['coll_ms']]} (calls of 64 MiB or "
+            f"more: {[(k, round(v, 2)) for k, v in c['big']]}); losses "
+            f"{[round(v, 5) for v in c['losses']]}; peak "
+            f"{_fmt(c['peak_gib'])} GiB, reserved {_fmt(c['reserved_gib'])}"
+            f" GiB; {c['local_params']} parameters on the rank")
+    for r in reps:
+        d = r["d"]
+        for i, s in enumerate(d["steps"]):
+            log(f"[lm-mesh] {name} (d) M-T3 rank {r['rank']} step {i + 1}: "
+                f"tinyllama-1.1b {d['layers']} layers, {d['coords']} "
+                f"coordinates in {d['chunks']} chunks: loss "
+                f"{s['loss']:.5f}; compress_and_reduce {s['compress_ms']:.2f}"
+                f" ms; density {s['density']:.4e}; launches "
+                f"{d['launches'][i + 1]}")
+        sp = d["split"]
+        log(f"[lm-mesh] {name} (d) rank {r['rank']}: one more round apart: "
+            f"sketch {sp['sketch_ms']:.2f} ms, merge (all-reduce) "
+            f"{sp['merge_ms']:.2f} ms, decompress {sp['decompress_ms']:.2f}"
+            f" ms (the estimate alone {sp['estimate_ms']:.2f} ms); merged "
+            f"float table within the bound {sp['within']} (worst "
+            f"{sp['err_ratio']:.3e} of it), the same bits on every rank "
+            f"{sp['same_bits']}")
+        log(f"[lm-mesh] {name} (d) rank {r['rank']}: integer gradients' "
+            f"merged table == one device's sketch of the sum "
+            f"{d['int_equal']}; peak {_fmt(d['peak_gib'])} GiB, reserved "
+            f"{_fmt(d['reserved_gib'])} GiB")
+    for r in reps:
+        if "e" in r:
+            e = r["e"]
+            p50 = statistics.median(e["ms"][1:])
+            log(f"[lm-mesh] {name} (e) M-J rank {r['rank']}: jamba-v0.1-52b "
+                f"8 layers ({e['params']} params) bf16 AdamW, B "
+                f"{e['batch']} x S {e['seq']}: step ms "
+                f"{[round(v, 2) for v in e['ms']]}, p50 after the warm-up "
+                f"{p50:.2f} ms, {e['batch'] * e['seq'] / p50 * 1e3:.0f} "
+                f"tokens/s, collectives ms {[round(v, 2) for v in e['coll_ms']]}"
+                f" (calls of 64 MiB or more: "
+                f"{[(k, round(v, 2)) for k, v in e['big']]}); losses "
+                f"{[round(v, 5) for v in e['losses']]}; peak "
+                f"{_fmt(e['peak_gib'])} GiB (after the draw "
+                f"{_fmt(e['init_peak_gib'])}), reserved "
+                f"{_fmt(e['reserved_gib'])} GiB")
+    log(f"[lm-mesh] {name} (f) checkpoints: restored onto one device "
+        f"bit-equal {r0['f']['restored']}, resumed on the mesh bit-exact "
+        f"{all(r['f']['resumed'] for r in reps)}")
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3838,6 +4766,13 @@ def main(argv=None) -> int:
     ap.add_argument("--points", type=int, default=N_POINTS,
                     help="points in the main paths' input (default: the "
                          "paper's 26M)")
+    ap.add_argument("--only", choices=("lm-mesh",), default=None,
+                    help="build the kernels and run this phase alone "
+                         "(prints no result line)")
+    ap.add_argument("--layouts", default=None,
+                    help="with --only lm-mesh: a comma list of its layouts "
+                         "(gloo4, nccl1, nccl4; default every one the "
+                         "visible cards allow)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3864,6 +4799,16 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t_start:.1f} s")
     for name, rep in reports.items():
         log(f"[build] {name}:\n{rep.strip()}")
+    if args.only == "lm-mesh":
+        layouts = None
+        if args.layouts:
+            every = {lay[0]: lay for lay in mesh_layouts(
+                torch.cuda.device_count())}
+            layouts = [every[name] for name in args.layouts.split(",")]
+        phase_lm_mesh(device, layouts=layouts)
+        log(f"[done] lm-mesh alone {time.perf_counter() - t_start:.1f} s; "
+            f"{nvidia_smi_line()}")
+        return 0
     phase_check(device)
     pts, pts_np, warm, spec = make_points(device, args.points)
     cfg, res = phase_main(device, pts, warm, spec)
@@ -3885,6 +4830,7 @@ def main(argv=None) -> int:
     phase_parity(cfg, device, peak, args.points)
     phase_lm(device)
     train_rows = phase_train(device)
+    phase_lm_mesh(device)
     for k in (k7, k8):
         k["per_call"] = dict(k.get("per_call") or {},
                              train=train_rows[k["name"]])

@@ -166,40 +166,66 @@ def ref_leaf(cfg: ModelConfig, tree, name: str, like_shape) -> np.ndarray:
     return leaf if s is None or leaf.ndim == len(like_shape) else leaf[s]
 
 
-def lm_params_from_numpy(cfg: ModelConfig, tree, device="cpu", tp: int = 1
-                         ) -> model_mod.LM:
+def lm_params_from_numpy(cfg: ModelConfig, tree, device="cpu", tp: int = 1,
+                         mesh=None, policy=None) -> model_mod.LM:
     """The reference's ``init_params(key, cfg, tp)`` pytree, its leaves as
     numpy (``jax.tree.map(np.asarray, params)``) -> the port's model on
     ``device``.  ``blocks/sub{j}`` (and ``cross{j}``) are stacked over
     superblocks: superblock s's sub-layer j is layer ``s·period + j``.  The
     ``AttnParams``, ``MlpParams``, ``MoeParams`` and ``SsmParams`` fields
-    map one to one onto the modules' parameters of the same names."""
-    model = model_mod.LM(cfg, tp, device)
+    map one to one onto the modules' parameters of the same names.  With
+    a ``mesh`` the model is this rank's blocks of it under ``policy``
+    (``launch.sharding.shard_model``; ``tp`` is the mesh's "model" size,
+    which the tree must be padded for)."""
+    from repro_torch.launch import sharding as sh
+    if mesh is not None:
+        from repro_torch.launch.mesh import tp_size
+        tp = tp_size(mesh)
+    model = model_mod.LM(cfg, tp, "meta" if mesh is not None else device)
+    if mesh is not None:
+        model.to_empty(device="cpu")
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.copy_(_weight(ref_leaf(cfg, tree, name, p.shape), p))
+    if mesh is not None:
+        sh.shard_model(model, mesh, policy or sh.ShardingPolicy())
+        model.to(device)
     return model
 
 
-def train_state_from_numpy(cfg: ModelConfig, ref_state, device="cpu"):
+def train_state_from_numpy(cfg: ModelConfig, ref_state, device="cpu",
+                           mesh=None, policy=None):
     """The reference's ``init_train_state`` (or a later train state), its
     leaves as numpy, -> the port's train state on ``device``: the model
     (as :func:`lm_params_from_numpy`), the optimizer's state (AdamW's
     ``m``/``v``, or Adafactor's ``vr``/``vc``/``factored``, per layer
-    from the reference's stacked leaves) and the step."""
-    model = lm_params_from_numpy(cfg, ref_state["params"], device)
+    from the reference's stacked leaves) and the step.  With a ``mesh``:
+    this rank's blocks of the weights and of AdamW's moments, and
+    Adafactor's statistics whole."""
+    model = lm_params_from_numpy(cfg, ref_state["params"], device,
+                                 mesh=mesh, policy=policy)
     model.requires_grad_(True)
     opt = ref_state["opt"]
+    specs = getattr(model, "specs", None)
     shapes = {n: p.shape for n, p in model.named_parameters()}
+    if specs is not None:
+        from repro_torch.launch.sharding import full_shape
+        shapes = {n: full_shape(s, specs[n], mesh) for n, s in shapes.items()}
 
-    def stats(tree, like_shapes):
-        return {n: torch.from_numpy(np.array(ref_leaf(cfg, tree, n, shape),
-                                             np.float32)).to(device)
-                for n, shape in like_shapes.items()}
+    def stats(tree, like_shapes, blocks=False):
+        out = {}
+        for n, shape in like_shapes.items():
+            t = torch.from_numpy(np.array(ref_leaf(cfg, tree, n, shape),
+                                          np.float32))
+            if blocks and specs is not None:
+                from repro_torch.launch.sharding import local_shard
+                t = local_shard(t, specs[n], mesh)
+            out[n] = t.to(device)
+        return out
 
     if hasattr(opt, "m"):
-        state = AdamWState(step=int(opt.step), m=stats(opt.m, shapes),
-                           v=stats(opt.v, shapes))
+        state = AdamWState(step=int(opt.step), m=stats(opt.m, shapes, True),
+                           v=stats(opt.v, shapes, True))
     else:
         zero = init_optimizer(cfg, TrainStepConfig(optimizer="adafactor"),
                               model)

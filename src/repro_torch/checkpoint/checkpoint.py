@@ -13,6 +13,12 @@ and field names with "/".  Every leaf is stored as its raw bytes with its
 dtype named in the manifest, so bf16 needs no ``ml_dtypes``.  The
 newest *complete* step (manifest present, every array readable) is the
 restart point; torn or corrupt steps are skipped.
+
+A checkpoint always holds the full leaves.  A run on a mesh writes the
+gathered leaves from one rank (``train.trainer``), and
+``restore_checkpoint(shardings=, mesh=)`` cuts each leaf to this rank's
+block of any mesh: a checkpoint written on one mesh restores onto
+another or onto one device.
 """
 from __future__ import annotations
 
@@ -42,14 +48,25 @@ def _children(node) -> Optional[List[Tuple[str, Any]]]:
     return None
 
 
-def _flatten_with_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
-    kids = _children(tree)
+def _flatten_with_paths(tree: Any, prefix: str = "",
+                        is_leaf=None) -> List[Tuple[str, Any]]:
+    kids = None if is_leaf is not None and is_leaf(tree) else _children(tree)
     if kids is None:
         return [(prefix, tree)]
     out = []
     for k, v in kids:
-        out += _flatten_with_paths(v, f"{prefix}/{k}" if prefix else k)
+        out += _flatten_with_paths(v, f"{prefix}/{k}" if prefix else k,
+                                   is_leaf)
     return out
+
+
+def _is_spec(node) -> bool:
+    """A layout (a tuple of axis names, tuples of them and Nones), not a
+    tuple of subtrees."""
+    return isinstance(node, tuple) and not hasattr(node, "_fields") and all(
+        a is None or isinstance(a, str) or (
+            isinstance(a, tuple) and all(isinstance(x, str) for x in a))
+        for a in node)
 
 
 def _to_cpu_tensor(leaf) -> torch.Tensor:
@@ -126,9 +143,20 @@ def _from_bytes(raw: np.ndarray, meta: Dict[str, Any]) -> torch.Tensor:
     return t.view(_DTYPES[meta["dtype"]]).reshape(meta["shape"])
 
 
-def restore_checkpoint(directory: str, step: int, like: Any) -> Any:
+def restore_checkpoint(directory: str, step: int, like: Any,
+                       shardings: Optional[Any] = None, mesh=None) -> Any:
     """The checkpoint in the structure of ``like``: a tensor leaf comes back
-    on ``like``'s device in its dtype, a Python scalar as that type."""
+    on ``like``'s device in its dtype, a Python scalar as that type.
+    ``shardings``: a tree of layouts like ``like``'s (tuples of axis
+    names, ``launch.sharding``) whose tensor leaves come back as this
+    rank's block on ``mesh`` of the stored full leaf (the reference's
+    elastic resume onto another mesh or device count)."""
+    specs = None
+    if shardings is not None:
+        if mesh is None:
+            raise ValueError("restoring to shardings needs their mesh")
+        from repro_torch.launch.sharding import local_shard
+        specs = dict(_flatten_with_paths(shardings, is_leaf=_is_spec))
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         meta = {leaf["path"]: leaf for leaf in json.load(f)["leaves"]}
@@ -142,6 +170,8 @@ def restore_checkpoint(directory: str, step: int, like: Any) -> Any:
                 raise KeyError(f"checkpoint missing leaf {prefix}")
             t = _from_bytes(data[prefix], meta[prefix])
             if isinstance(node, torch.Tensor):
+                if specs is not None and specs.get(prefix):
+                    t = local_shard(t, specs[prefix], mesh)
                 return t.to(device=node.device, dtype=node.dtype)
             if isinstance(node, (bool, int, float)):
                 return type(node)(t.item())

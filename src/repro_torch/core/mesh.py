@@ -20,7 +20,11 @@ process group.
   reference's ``P(axes)`` layout);
 * :func:`axis_size` / :func:`row_block` — row-block sizing;
 * :func:`all_reduce` / :func:`all_gather` — the collectives, over one
-  dimension or, innermost first, over several.
+  dimension or, innermost first, over several;
+* :func:`all_gather_dim` / :func:`reduce_scatter_dim` — the LM mesh
+  tier's pair along a tensor dimension (FSDP's weight gather and its
+  gradient's reduce-scatter), and :func:`block` — a rank's block of a
+  dimension.
 
 Staging: a gloo group takes host tensors, so every collective over a
 gloo group copies a card tensor to the host, runs there and copies the
@@ -161,6 +165,13 @@ def row_block(n: int, n_shards: int) -> Tuple[int, int]:
     return rows_per, rows_per * n_shards
 
 
+# the tensor collectives' names moved in torch 2.13; either takes the
+# same arguments
+_GATHER_INTO = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_SCATTER_FROM = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
                "min": dist.ReduceOp.MIN}
 
@@ -203,3 +214,53 @@ def all_gather(t: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
         dist.all_gather(parts, w, group=group)
         out = torch.cat(parts).to(t.device, dtype=t.dtype)
     return out if out is not t else t.clone()
+
+
+def block(t: torch.Tensor, mesh, axes: Axes, dim: int) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` over ``axes`` (the
+    :func:`linear_index` over them, row-major): a view."""
+    n = axis_size(mesh, axes)
+    if t.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
+                         f"split over {n} ranks")
+    step = t.shape[dim] // n
+    return t.narrow(dim, linear_index(mesh, axes) * step, step)
+
+
+def all_gather_dim(t: torch.Tensor, mesh, axes: Axes, dim: int
+                   ) -> torch.Tensor:
+    """Every rank's ``t`` along ``axes`` concatenated along ``dim`` in
+    the row-major rank order of :func:`linear_index` (the inverse of
+    :func:`block`).  Several axes are gathered innermost (last) first.
+    Returns a new tensor on ``t``'s device."""
+    out = t
+    for a in reversed(as_axes(axes)):
+        group = mesh.get_group(a)
+        n = dist.get_world_size(group)
+        w = _wire(out.movedim(dim, 0), group)
+        full = torch.empty((n * w.shape[0],) + tuple(w.shape[1:]),
+                           dtype=w.dtype, device=w.device)
+        _GATHER_INTO(full, w, group=group)
+        out = full.to(t.device, dtype=t.dtype).movedim(0, dim)
+    return out.contiguous() if out is not t else t.clone()
+
+
+def reduce_scatter_dim(t: torch.Tensor, mesh, axes: Axes, dim: int
+                       ) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``axes``, of which this rank
+    keeps its :func:`block` along ``dim`` (the adjoint of
+    :func:`all_gather_dim`).  Several axes are scattered outermost
+    (first) first.  Returns a new tensor on ``t``'s device."""
+    out = t
+    for a in as_axes(axes):
+        group = mesh.get_group(a)
+        n = dist.get_world_size(group)
+        w = _wire(out.movedim(dim, 0), group)
+        if w.shape[0] % n:
+            raise ValueError(f"dimension {dim} of {tuple(t.shape)} does "
+                             f"not split over {n} ranks")
+        part = torch.empty((w.shape[0] // n,) + tuple(w.shape[1:]),
+                           dtype=w.dtype, device=w.device)
+        _SCATTER_FROM(part, w, group=group)
+        out = part.to(t.device, dtype=t.dtype).movedim(0, dim)
+    return out.contiguous() if out is not t else t.clone()

@@ -10,6 +10,12 @@ are upcast for those two contractions on every device.
 Attention is query-chunked: logits for one (B, H, q_chunk, T) tile at a
 time, so the (S, S) score matrix is never materialized.  GQA keeps K/V at
 ``num_kv_heads`` and broadcasts inside the contraction.
+
+On a mesh (``launch.sharding.shard_model`` sets each module's ``par``)
+attention and the MLP are tensor-parallel over "model": ``wq``,
+``w_gate`` and ``w_up`` column-parallel, ``wo`` and ``w_down``
+row-parallel and summed over "model"; ``wk``/``wv`` replicated, each rank
+taking the K/V heads its query heads read.  Off a mesh ``par`` is None.
 """
 from __future__ import annotations
 
@@ -140,6 +146,7 @@ class Attention(nn.Module):
                  device=None):
         super().__init__()
         self.real_heads = real_heads
+        self.par = None
         self.wq = _param((d_model, heads, head_dim), dtype, device)
         self.wk = _param((d_model, kv_heads, head_dim), dtype, device)
         self.wv = _param((d_model, kv_heads, head_dim), dtype, device)
@@ -164,19 +171,49 @@ class Attention(nn.Module):
                 b.zero_()
 
     def q_proj(self, x: torch.Tensor) -> torch.Tensor:
-        return _proj_in(x, self.wq)
+        """This rank's query heads (all of them off a mesh)."""
+        return _proj_in(x if self.par is None else self.par.to_tp(x),
+                        self.wq)
 
     def qkv_proj(self, x: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        q, k, v = (_proj_in(x, w) for w in (self.wq, self.wk, self.wv))
+        """q of this rank's heads; k and v of every KV head (see
+        :meth:`local_kv`)."""
+        q = self.q_proj(x)
+        k, v = _proj_in(x, self.wk), _proj_in(x, self.wv)
         if self.bq is not None:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
         return q, k, v
 
+    def local_kv(self, k: torch.Tensor) -> torch.Tensor:
+        """K (or V) (B, T, KVH, hd) narrowed to the KV heads this rank's
+        query heads read, as many heads as make GQA's reshape in
+        :func:`attention` pair them as the whole layer does: head h reads
+        KV head h // G, G = H / KVH over the padded heads H.  The
+        identity off a mesh."""
+        par = self.par
+        if par is None or par.tp is None:
+            return k
+        k = par.to_tp(k)
+        hl, kvh = self.wq.shape[1], k.shape[2]
+        heads = hl * par.tp_size
+        if heads % kvh:
+            raise ValueError(f"{heads} query heads do not group over {kvh} "
+                             f"KV heads")
+        g, start = heads // kvh, par.tp_rank * hl
+        if hl % g == 0:
+            return k[:, :, start // g:(start + hl) // g]
+        if g % hl == 0:
+            return k[:, :, start // g:start // g + 1]
+        idx = torch.arange(start, start + hl, device=k.device) // g
+        return k[:, :, idx]
+
     def out_proj(self, ctx: torch.Tensor) -> torch.Tensor:
-        """"bshk,hkd->bsd"."""
+        """"bshk,hkd->bsd"; on a mesh this rank's heads' share, summed
+        over "model"."""
         b, s, h, hd = ctx.shape
-        return ctx.reshape(b, s, h * hd) @ self.wo.reshape(h * hd, -1)
+        out = ctx.reshape(b, s, h * hd) @ self.wo.reshape(h * hd, -1)
+        return out if self.par is None else self.par.from_tp(out)
 
 
 def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -190,6 +227,7 @@ class Mlp(nn.Module):
 
     def __init__(self, d_model: int, d_ff: int, dtype, device=None):
         super().__init__()
+        self.par = None
         self.w_gate = _param((d_model, d_ff), dtype, device)
         self.w_up = _param((d_model, d_ff), dtype, device)
         self.w_down = _param((d_ff, d_model), dtype, device)
@@ -203,8 +241,11 @@ class Mlp(nn.Module):
         _normal_(self.w_down, gen, so)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.par is not None:
+            x = self.par.to_tp(x)
         h = silu(x @ self.w_gate) * (x @ self.w_up)
-        return h @ self.w_down
+        out = h @ self.w_down
+        return out if self.par is None else self.par.from_tp(out)
 
 
 def update_cache(cache: torch.Tensor, new: torch.Tensor, pos: int

@@ -18,19 +18,34 @@ layers and each encoder layer with ``torch.utils.checkpoint``.
 
 All dense compute is in the config's compute dtype with f32
 softmax/norm/router, as in the reference.
+
+A model cut to a rank's blocks by ``launch.sharding.shard_model`` trains
+on its mesh (``launch/sharding.py`` says how): :func:`forward_train`
+takes this rank's rows of the batch and returns the global batch's loss
+on every rank.  Each superblock gathers its layers' FSDP blocks over
+"data" inside its checkpoint; the residual stream crosses a superblock
+boundary in the layout its policy's ``act_mode`` names; the embedding
+and the LM head are vocab-parallel over "model", the cross-entropy's
+max and log-sum-exp reduced over "model" and its sums over the data
+axes.  One body serves both: off a mesh the model's ``par`` is
+``sharding.LOCAL`` and every collective is skipped.  Serving runs on
+one device only.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.core.device import resolve_device
+from repro_torch.launch import sharding as sh
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -50,13 +65,6 @@ def _sub_kind(cfg: ModelConfig, i: int) -> str:
     return f"{mix}|{ff}"
 
 
-def _ones(d: int, dtype, device) -> nn.Parameter:
-    p = L._param((d,), dtype, device)
-    with torch.no_grad():
-        p.fill_(1.0)
-    return p
-
-
 class Block(nn.Module):
     """One layer: norm1 and a mixer (attention or Mamba2), then norm2 and a
     feed-forward (MLP, MoE, or both in parallel for arctic) unless the
@@ -66,7 +74,7 @@ class Block(nn.Module):
         super().__init__()
         mix, ff = kind.split("|")
         d, dt = cfg.d_model, cfg.pdtype
-        self.norm1 = _ones(d, dt, device)
+        self.norm1 = L._param((d,), dt, device)
         self.attn = L.Attention(
             d, cfg.padded_heads(tp), cfg.num_kv_heads, cfg.head_dim,
             cfg.num_heads, bias=cfg.qkv_bias, dtype=dt, device=device) \
@@ -75,13 +83,16 @@ class Block(nn.Module):
             d, cfg.d_inner, cfg.ssm_state, cfg.padded_ssm_heads(tp),
             cfg.ssm_heads, cfg.ssm_conv_width, dt, device) \
             if mix == "ssm" else None
-        self.norm2 = _ones(d, dt, device) if ff != "none" else None
+        self.norm2 = L._param((d,), dt, device) if ff != "none" else None
         self.moe = moe_mod.Moe(d, cfg.num_experts, cfg.expert_ff, dt,
                                device) if ff in ("moe", "moe+mlp") else None
         self.mlp = L.Mlp(d, cfg.d_ff, dt, device) \
             if ff in ("mlp", "moe+mlp") else None
 
     def reset(self, gen: torch.Generator) -> None:
+        for n in (self.norm1, self.norm2):
+            if n is not None:
+                n.fill_(1.0)
         for m in (self.attn, self.ssm, self.moe, self.mlp):
             if m is not None:
                 m.reset(gen)
@@ -93,13 +104,14 @@ class CrossAttention(nn.Module):
 
     def __init__(self, cfg: ModelConfig, tp: int, device=None):
         super().__init__()
-        self.norm = _ones(cfg.d_model, cfg.pdtype, device)
+        self.norm = L._param((cfg.d_model,), cfg.pdtype, device)
         self.attn = L.Attention(
             cfg.d_model, cfg.padded_heads(tp), cfg.num_kv_heads,
             cfg.head_dim, cfg.num_heads, bias=False, dtype=cfg.pdtype,
             device=device)
 
     def reset(self, gen: torch.Generator) -> None:
+        self.norm.fill_(1.0)
         self.attn.reset(gen)
 
 
@@ -117,7 +129,7 @@ class LM(nn.Module):
         d, dt = cfg.d_model, cfg.pdtype
         v = padded_vocab(cfg, tp)
         self.embed = L._param((v, d), dt, device)
-        self.final_norm = _ones(d, dt, device)
+        self.final_norm = L._param((d,), dt, device)
         self.lm_head = None if cfg.tie_embeddings \
             else L._param((v, d), dt, device)
         self.layers = nn.ModuleList(
@@ -130,7 +142,7 @@ class LM(nn.Module):
             Block(cfg, "attn|mlp", tp, device)
             for _ in range(cfg.encoder_layers)) \
             if cfg.encoder_layers else None
-        self.enc_final_norm = _ones(d, dt, device) \
+        self.enc_final_norm = L._param((d,), dt, device) \
             if cfg.encoder_layers else None
         self.patch_proj = L._param((d, d), dt, device) \
             if cfg.frontend == "vision" else None
@@ -139,17 +151,52 @@ class LM(nn.Module):
     def head(self) -> torch.Tensor:
         return self.embed if self.lm_head is None else self.lm_head
 
-    @torch.no_grad()
-    def reset(self, gen: torch.Generator) -> None:
-        L._normal_(self.embed, gen, 0.02)
+    def _parts(self) -> List[Tuple[str, Callable]]:
+        """(name, draw) of each top-level weight and each layer, in the
+        order the reference draws them (the norms draw nothing)."""
+        def normal(name, scale):
+            return lambda g: L._normal_(getattr(self, name), g, scale)
+
+        def ones(name):
+            return lambda g: getattr(self, name).fill_(1.0)
+        out = [("embed", normal("embed", 0.02))]
         if self.lm_head is not None:
-            L._normal_(self.lm_head, gen, 0.02)
-        for group in (self.layers, self.cross, self.enc_layers):
-            for m in group or ():
-                m.reset(gen)
+            out.append(("lm_head", normal("lm_head", 0.02)))
+        out.append(("final_norm", ones("final_norm")))
+        for group in ("layers", "cross", "enc_layers"):
+            for i, m in enumerate(getattr(self, group) or ()):
+                out.append((f"{group}.{i}", m.reset))
+        if self.enc_final_norm is not None:
+            out.append(("enc_final_norm", ones("enc_final_norm")))
         if self.patch_proj is not None:
-            L._normal_(self.patch_proj, gen,
-                       float(1.0 / math.sqrt(self.cfg.d_model)))
+            out.append(("patch_proj", normal(
+                "patch_proj", float(1.0 / math.sqrt(self.cfg.d_model)))))
+        return out
+
+    @torch.no_grad()
+    def reset(self, gen: torch.Generator, device=None,
+              cut: Optional[Callable[[List[str]], Any]] = None) -> None:
+        """Draw every weight from ``gen`` (norms at 1).  With ``cut``, on
+        a model built on "meta": each part (a top-level weight or a layer)
+        is made on ``device``, drawn, and handed to ``cut`` (its
+        parameters' names) before the next part is made, so the whole
+        model is never held at once; the draws are those of a model built
+        on ``device``."""
+        for name, draw in self._parts():
+            if cut is not None:
+                if name in self._parameters:
+                    p = self._parameters[name]
+                    self._parameters[name] = nn.Parameter(
+                        torch.empty(p.shape, dtype=p.dtype, device=device),
+                        requires_grad=p.requires_grad)
+                else:
+                    self.get_submodule(name).to_empty(device=device)
+            draw(gen)
+            if cut is not None:
+                mod = self.get_submodule(name) \
+                    if name not in self._parameters else None
+                cut([name] if mod is None else
+                    [f"{name}.{n}" for n, _ in mod.named_parameters()])
 
 
 def padded_vocab(cfg: ModelConfig, tp: int) -> int:
@@ -158,19 +205,56 @@ def padded_vocab(cfg: ModelConfig, tp: int) -> int:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, tp: int = 1,
-                device=None) -> LM:
+                device=None, mesh=None,
+                policy: Optional[sh.ShardingPolicy] = None) -> LM:
     """The model on ``device`` (the card unless the caller names another)
     with weights drawn from ``generator``, which must lie there too:
     normals scaled as the reference's ``init_params`` scales them, norms
     at 1, TP-padded heads zeroed (the draws themselves are torch's, not
-    JAX's threefry)."""
+    JAX's threefry).  With a ``mesh``: this rank's blocks under
+    ``policy`` (``sharding.shard_model``), each part cut as soon as it is
+    drawn, so a rank holds its blocks and one full part (a layer or the
+    vocabulary) at most; the draw is one device's, heads and vocabulary
+    padded by the mesh's "model" size."""
     device = resolve_device(device)
     if generator.device.type != device.type:
         raise ValueError(f"the generator lies on {generator.device}, the "
                          f"model is asked for on {device}")
-    model = LM(cfg, tp, device)
-    model.reset(generator)
+    if mesh is None:
+        model = LM(cfg, tp, device)
+        model.reset(generator)
+        return model
+    from repro_torch.launch.mesh import tp_size
+    pol = policy or sh.ShardingPolicy()
+    model = LM(cfg, max(tp, tp_size(mesh)), "meta")
+    model.reset(generator, device,
+                cut=lambda names: sh.shard_model(model, mesh, pol, names))
     return model
+
+
+def model_par(model: nn.Module) -> sh.Par:
+    """The mesh a model was cut for (``sharding.shard_model``), or
+    ``sharding.LOCAL`` for one device's."""
+    return getattr(model, "par", None) or sh.LOCAL
+
+
+def embed_rows(model: LM, tokens: torch.Tensor,
+               embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The embedding rows of ``tokens``, in the weights' dtype.  On a mesh
+    the lookup is vocab-parallel: each model rank looks the tokens up in
+    its block of the vocabulary (``embed``: that block with its FSDP
+    blocks gathered; gathered here when not given), zeros the rows of
+    tokens outside it, and the rows are summed over "model"."""
+    par = model_par(model)
+    if embed is None:
+        embed = sh.gather_weight(model.embed, par.mesh, par.fs, 1)
+    if par.tp is None:
+        return F.embedding(tokens, embed)
+    rows = embed.shape[0]
+    local = tokens - par.tp_rank * rows
+    inside = (local >= 0) & (local < rows)
+    return par.from_tp(F.embedding(local.clamp(0, rows - 1), embed)
+                       * inside[..., None].to(embed.dtype))
 
 
 def param_stacks(cfg: ModelConfig, model: LM) -> List[Tuple[str, ...]]:
@@ -206,9 +290,10 @@ def _apply_ff(cfg: ModelConfig, blk: Block, x: torch.Tensor,
             blk.moe, h, top_k=cfg.moe_top_k,
             capacity_factor=cfg.capacity_factor)
         if aux is not None:
-            a = moe_mod.moe_aux(routing)
+            a = moe_mod.moe_aux(routing, blk.moe.par)
             aux["lb_loss"] = aux["lb_loss"] + a.load_balance_loss
             aux["z_loss"] = aux["z_loss"] + a.z_loss
+            aux["dropped"] = aux["dropped"] + a.dropped_frac.detach()
     if blk.mlp is not None:
         m = blk.mlp(h)
         delta = m if delta is None else delta + m
@@ -222,7 +307,7 @@ def _apply_cross(cfg: ModelConfig, cr: CrossAttention, x: torch.Tensor,
     reference attends there too, with ``kv_valid_len=None``)."""
     h = L.rms_norm(x, cr.norm, cfg.norm_eps)
     q = cr.attn.q_proj(h)
-    ctx = L.attention(q, enc_k, enc_v,
+    ctx = L.attention(q, cr.attn.local_kv(enc_k), cr.attn.local_kv(enc_v),
                       torch.zeros(x.shape[1], dtype=torch.long,
                                   device=x.device), None,
                       causal=False, q_chunk=1024)
@@ -265,18 +350,36 @@ def encode(cfg: ModelConfig, model: LM, src_embeds: torch.Tensor,
     positions = torch.arange(x.shape[1], device=x.device)
     cos, sin = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
-    def layer(blk, x):
-        h = L.rms_norm(x, blk.norm1, cfg.norm_eps)
-        q, k, v = blk.attn.qkv_proj(h)
-        ctx = L.attention(L.rotate(q, cos, sin), L.rotate(k, cos, sin), v,
-                          positions, None, causal=False, q_chunk=4096)
-        x = x + blk.attn.out_proj(ctx)
-        return _apply_ff(cfg, blk, x)
+    def layer(i, x):
+        blk = model.enc_layers[i]
+        with _gathered(model, [f"enc_layers.{i}"]):
+            h = L.rms_norm(x, blk.norm1, cfg.norm_eps)
+            q, k, v = blk.attn.qkv_proj(h)
+            k = blk.attn.local_kv(L.rotate(k, cos, sin))
+            ctx = L.attention(L.rotate(q, cos, sin), k, blk.attn.local_kv(v),
+                              positions, None, causal=False, q_chunk=4096)
+            x = x + blk.attn.out_proj(ctx)
+            return _apply_ff(cfg, blk, x)
 
     layer = _remat(layer, remat)
-    for blk in model.enc_layers:
-        x = layer(blk, x)
+    for i in range(len(model.enc_layers)):
+        x = layer(i, x)
     return L.rms_norm(x, model.enc_final_norm, cfg.norm_eps)
+
+
+def _gathered(model: LM, prefixes: List[str]):
+    """Context: the modules named ``prefixes`` of a sharded ``model`` with
+    their FSDP blocks gathered over "data" (differentiably, so the
+    backward pass reduce-scatters the gradients); nothing off a mesh."""
+    par = model_par(model)
+    if par.fs is None:
+        return contextlib.nullcontext()
+    tensors = {}
+    for pre in prefixes:
+        mod = model.get_submodule(pre)
+        for n, t in sh.gather_layer(mod, par, model.specs, pre).items():
+            tensors[f"{pre}.{n}"] = t
+    return sh.swapped(model, tensors)
 
 
 # ================================================================= training
@@ -287,7 +390,8 @@ def _apply_sub_train(cfg: ModelConfig, blk: Block, x: torch.Tensor,
     h = L.rms_norm(x, blk.norm1, cfg.norm_eps)
     if blk.attn is not None:
         q, k, v = blk.attn.qkv_proj(h)
-        ctx = L.attention(L.rotate(q, *rope), L.rotate(k, *rope), v,
+        k = blk.attn.local_kv(L.rotate(k, *rope))
+        ctx = L.attention(L.rotate(q, *rope), k, blk.attn.local_kv(v),
                           positions, None, causal=True, q_chunk=q_chunk)
         x = x + blk.attn.out_proj(ctx)
     else:
@@ -302,31 +406,44 @@ def _blocks_train(cfg: ModelConfig, model: LM, x: torch.Tensor,
                   remat: bool, remat_policy: str
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Every layer, one superblock (``period`` layers) a checkpoint; the
-    aux losses summed in a superblock, then over the superblocks."""
+    aux losses summed in a superblock, then over the superblocks (and the
+    MoE layers' dropped shares, for the metrics).  On a mesh ``x`` comes
+    and goes in the boundary layout (``sharding.shard_act_btd``), and a
+    superblock gathers its layers' FSDP blocks inside its checkpoint."""
     period = cfg.superblock_period()
-    positions = torch.arange(x.shape[1], device=x.device)
+    par = model_par(model)
+    seq = x.shape[1] * sh.act_seq_blocks(par)
+    positions = torch.arange(seq, device=x.device)
     rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta) \
         if cfg.num_heads else None
 
     def superblock(s, x):
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        aux = {"lb_loss": zero, "z_loss": zero}
-        for i in range(s * period, (s + 1) * period):
-            x = _apply_sub_train(cfg, model.layers[i], x, rope, positions,
-                                 aux, q_chunk)
-            if enc_out is not None:
-                cr = model.cross[i]
-                x = _apply_cross(cfg, cr, x, *_cross_kv(cr, enc_out))
-        return x, aux["lb_loss"], aux["z_loss"]
+        aux = {"lb_loss": zero, "z_loss": zero, "dropped": zero}
+        layers = range(s * period, (s + 1) * period)
+        names = [f"layers.{i}" for i in layers] + (
+            [f"cross.{i}" for i in layers] if enc_out is not None else [])
+        x = sh.unshard_act_btd(x, par)
+        with _gathered(model, names):
+            for i in layers:
+                x = _apply_sub_train(cfg, model.layers[i], x, rope,
+                                     positions, aux, q_chunk)
+                if enc_out is not None:
+                    cr = model.cross[i]
+                    x = _apply_cross(cfg, cr, x, *_cross_kv(cr, enc_out))
+        x = sh.shard_act_btd(x, par)
+        return x, aux["lb_loss"], aux["z_loss"], aux["dropped"]
 
     superblock = _remat(superblock, remat, remat_policy)
-    lbs, zls = [], []
+    lbs, zls, drops = [], [], []
     for s in range(cfg.num_layers // period):
-        x, lb, zl = superblock(s, x)
+        x, lb, zl, dr = superblock(s, x)
         lbs.append(lb)
         zls.append(zl)
+        drops.append(dr)
     return x, {"lb_loss": torch.stack(lbs).sum(),
-               "z_loss": torch.stack(zls).sum()}
+               "z_loss": torch.stack(zls).sum(),
+               "dropped": torch.stack(drops).sum()}
 
 
 def forward_train(cfg: ModelConfig, model: LM, batch: Dict[str, Any],
@@ -338,34 +455,63 @@ def forward_train(cfg: ModelConfig, model: LM, batch: Dict[str, Any],
     -1e30, a vlm's patch prefix dropped before the head) plus
     ``aux_loss_weight``·lb + ``router_z_loss``·z of the MoE layers.
     ``batch``: ``tokens``, ``labels`` (B, S), ``loss_mask`` and, by
-    family, ``patch_embeds`` or ``src_embeds``."""
-    x = F.embedding(batch["tokens"], model.embed).to(cfg.cdtype)
+    family, ``patch_embeds`` or ``src_embeds``.  A sharded model takes
+    this rank's rows of the batch (``sharding.batch_pspecs``) and returns
+    the global batch's loss and metrics."""
+    par = model_par(model)
+    embed = sh.gather_weight(model.embed, par.mesh, par.fs, 1)  # (V_l, D)
+    rows = embed.shape[0]
+    v0 = par.tp_rank * rows            # this rank's first vocabulary row
+    x = embed_rows(model, batch["tokens"], embed).to(cfg.cdtype)
     offset = 0
     if cfg.frontend == "vision":
-        pe = batch["patch_embeds"].to(cfg.cdtype) @ model.patch_proj
+        pe = par.to_tp(batch["patch_embeds"].to(cfg.cdtype)) @ \
+            model.patch_proj                               # (B, P, D_l)
+        pe = sh.gather_act(pe, par.mesh, par.tp, 2)
         x = torch.cat([pe, x], dim=1)
         offset = pe.shape[1]
     enc_out = encode(cfg, model, batch["src_embeds"], remat=remat) \
         if cfg.encoder_layers else None
-    x, aux = _blocks_train(cfg, model, x, q_chunk, enc_out, remat,
-                           remat_policy)
+    x, aux = _blocks_train(cfg, model, sh.shard_act_btd(x, par), q_chunk,
+                           enc_out, remat, remat_policy)
+    x = sh.shard_act_logits_input(x, par)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     if offset:
         x = x[:, offset:, :]
-    head = model.head
-    logits = (x @ head.T).float()                          # bf16 product
-    if head.shape[0] != cfg.vocab_size:                    # mask vocab pad
-        pad = torch.arange(head.shape[0], device=x.device) >= cfg.vocab_size
+    head = embed if model.lm_head is None \
+        else sh.gather_weight(model.lm_head, par.mesh, par.fs, 1)
+    logits = (par.to_tp(x) @ head.T).float()    # bf16 product, (B, S, V_l)
+    if par.tp_size * rows != cfg.vocab_size:               # mask vocab pad
+        pad = v0 + torch.arange(rows, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, L.MASKED)
+    # log-sum-exp over the vocabulary blocks: the max over "model", then
+    # the blocks' sums of exp
+    m = mesh_mod.all_reduce(logits.detach().amax(dim=-1), par.mesh, par.tp,
+                            op="max") if par.tp_size > 1 else \
+        logits.detach().amax(dim=-1)
+    se = par.from_tp(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    logz = m + torch.log(se)
+    lab = batch["labels"] - v0
+    mine = (lab >= 0) & (lab < rows)
+    gold = torch.gather(logits, -1, lab.clamp(0, rows - 1)[..., None])[..., 0]
+    gold = par.from_tp(torch.where(mine, gold, 0.0))
     mask = batch["loss_mask"].float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
-    loss = torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
-                                                         min=1.0)
+    loss = par.dp_sum(torch.sum((logz - gold) * mask)) \
+        / torch.clamp(par.dp_sum(torch.sum(mask)), min=1.0)
+    return _total(cfg, loss, aux)
+
+
+def _total(cfg: ModelConfig, loss: torch.Tensor,
+           aux: Dict[str, torch.Tensor]
+           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     total = loss + cfg.aux_loss_weight * aux["lb_loss"] \
         + cfg.router_z_loss * aux["z_loss"]
-    return total, {"loss": loss, "lb_loss": aux["lb_loss"],
-                   "z_loss": aux["z_loss"]}
+    metrics = {"loss": loss, "lb_loss": aux["lb_loss"],
+               "z_loss": aux["z_loss"]}
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    if n_moe:
+        metrics["dropped_frac"] = aux["dropped"] / n_moe
+    return total, metrics
 
 
 # ================================================================= decoding
@@ -435,7 +581,10 @@ def forward_step(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
                  ) -> Tuple[torch.Tensor, State]:
     """Cache-carrying forward (prefill: tokens (B, S); decode: (B, 1)).
     Returns (f32 logits for the final position (B, V), the state), the
-    state's caches and position updated in place."""
+    state's caches and position updated in place.  On one device only: a
+    sharded model raises."""
+    if getattr(model, "par", None) is not None:
+        raise NotImplementedError("serving on a mesh is not in the port yet")
     pos = state["pos"]
     x = model.embed[tokens].to(cfg.cdtype)
     if prefix_embeds is not None:

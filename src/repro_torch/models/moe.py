@@ -17,6 +17,18 @@ Orders the reference fixes and the port keeps:
   adds a token's kept assignments in that order, one pass a rank, so the
   card gives the same bits on every run (an ``index_add_`` of bf16 rows
   on CUDA adds in whatever order its atomics land).
+
+On a mesh (``par`` set by ``launch.sharding.shard_model``) the batch is
+split over the data axes and the experts over "model" (EP), the router
+replicated over "model".  The capacity stays the reference's global one:
+C is that of every token of the global batch, and an assignment's
+position in its expert's run is its rank's exclusive prefix of the
+per-expert counts over the data ranks (in batch order) plus its local
+position, so the same assignments are dropped as on one device.  Each
+model rank runs its experts' FFN and combines their share of a token's
+output; the shares are summed over "model".  The aux losses' means are
+over the global batch: their sums are summed over the data axes before
+the product.
 """
 from __future__ import annotations
 
@@ -28,7 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.core.candidates import topk_desc
+from repro_torch.launch.sharding import shard_moe_dispatch
 from repro_torch.models.layers import _normal_, _param, silu
 
 
@@ -39,6 +53,7 @@ class Moe(nn.Module):
     def __init__(self, d_model: int, num_experts: int, expert_ff: int,
                  dtype, device=None):
         super().__init__()
+        self.par = None
         self.router = _param((d_model, num_experts), torch.float32, device)
         self.w_gate = _param((num_experts, d_model, expert_ff), dtype, device)
         self.w_up = _param((num_experts, d_model, expert_ff), dtype, device)
@@ -74,15 +89,40 @@ class Routing(NamedTuple):
     keep: torch.Tensor           # (N·K,) bool: assignment within capacity
 
 
-def moe_aux(r: Routing) -> MoeAux:
+def moe_aux(r: Routing, par=None) -> MoeAux:
     """The reference's aux losses (load balance, router z, dropped share)
-    from a routing: computed only for a caller that trains on them."""
+    from a routing: computed only for a caller that trains on them.  With
+    ``par`` (the sharded layer's mesh) the routing is this data rank's and
+    every mean is over the global batch."""
     e = r.probs.shape[1]
-    f = torch.mean(F.one_hot(r.expert_ids[:, 0], e).float(), dim=0)
-    lb = e * torch.sum(f * torch.mean(r.probs, dim=0))
-    z = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
-    dropped = 1.0 - torch.sum(r.keep) / r.keep.numel()
+    if par is None or mesh_mod.axis_size(par.mesh, par.dp) == 1:
+        f = torch.mean(F.one_hot(r.expert_ids[:, 0], e).float(), dim=0)
+        lb = e * torch.sum(f * torch.mean(r.probs, dim=0))
+        z = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
+        dropped = 1.0 - torch.sum(r.keep) / r.keep.numel()
+        return MoeAux(load_balance_loss=lb, z_loss=z, dropped_frac=dropped)
+    n = r.probs.shape[0] * mesh_mod.axis_size(par.mesh, par.dp)
+    top1 = mesh_mod.all_reduce(
+        torch.sum(F.one_hot(r.expert_ids[:, 0], e).float(), dim=0),
+        par.mesh, par.dp)
+    f = top1 / n
+    lb = e * torch.sum(f * (par.dp_sum(torch.sum(r.probs, dim=0)) / n))
+    z = par.dp_sum(torch.sum(torch.logsumexp(r.logits, dim=-1) ** 2)) / n
+    kept = mesh_mod.all_reduce(torch.sum(r.keep, dtype=torch.float32),
+                               par.mesh, par.dp)
+    dropped = 1.0 - kept / (r.keep.numel() * (n // r.probs.shape[0]))
     return MoeAux(load_balance_loss=lb, z_loss=z, dropped_frac=dropped)
+
+
+def _global_positions(par, se: torch.Tensor, pos: torch.Tensor, e: int
+                      ) -> torch.Tensor:
+    """Each sorted assignment's position in its expert's run over the
+    global batch: the data ranks before this one (in batch order) hold
+    the first tokens, so their counts of each expert come first."""
+    counts = torch.bincount(se, minlength=e)[None]            # (1, E)
+    every = mesh_mod.all_gather_dim(counts, par.mesh, par.dp, 0)
+    me = mesh_mod.linear_index(par.mesh, par.dp)
+    return pos + every[:me].sum(dim=0)[se]
 
 
 def moe_apply(p: Moe, x: torch.Tensor, *, top_k: int,
@@ -92,7 +132,9 @@ def moe_apply(p: Moe, x: torch.Tensor, *, top_k: int,
     b, s, d = x.shape
     n = b * s
     e = p.router.shape[1]
-    c = capacity(n, e, top_k, capacity_factor)
+    par = p.par
+    n_dp = 1 if par is None else mesh_mod.axis_size(par.mesh, par.dp)
+    c = capacity(n * n_dp, e, top_k, capacity_factor)
     dev = x.device
     xf = x.reshape(n, d)
 
@@ -111,8 +153,11 @@ def moe_apply(p: Moe, x: torch.Tensor, *, top_k: int,
     head[1:] = se[1:] != se[:-1]
     run_start = torch.cummax(torch.where(head, idx, 0), dim=0).values
     pos_in_expert = idx - run_start
-    keep = pos_in_expert < c
+    keep = (pos_in_expert if n_dp == 1 else
+            _global_positions(par, se, pos_in_expert, e)) < c
     slot = torch.where(keep, se * c + pos_in_expert, e * c)   # e*c: trash
+    if par is not None:                 # rank-local work: shares' gradients
+        xf, sg = par.to_tp(xf), par.to_tp(sg)
 
     slot_token = torch.zeros(e * c + 1, dtype=torch.long, device=dev
                              ).scatter_(0, slot, st)
@@ -120,21 +165,31 @@ def moe_apply(p: Moe, x: torch.Tensor, *, top_k: int,
                               ).scatter_(0, slot, keep)
     gather_idx, filled = slot_token[:e * c], slot_filled[:e * c]
     xe = torch.where(filled[:, None], xf[gather_idx], 0).reshape(e, c, d)
+    xe = shard_moe_dispatch(xe, par)                       # EP: (E_l, C, D)
+    el = xe.shape[0]
+    e0 = 0 if par is None or par.tp is None else par.tp_block(e)[0]
 
-    # ---- expert FFN (batched over E) -------------------------------------
+    # ---- expert FFN (batched over this rank's experts) -------------------
     h = silu(torch.bmm(xe, p.w_gate)) * torch.bmm(xe, p.w_up)
-    ye = torch.bmm(h, p.w_down)                            # (E, C, D)
+    ye = torch.bmm(h, p.w_down)                            # (E_l, C, D)
 
     # ---- combine: each token's kept slots, ascending, gate-weighted ------
     slot_gate = torch.zeros(e * c + 1, dtype=torch.float32, device=dev
                             ).scatter_(0, slot, torch.where(keep, sg, 0.0))
-    gated = ye.reshape(e * c, d) * slot_gate[:e * c, None].to(ye.dtype)
-    gated = torch.cat([gated, gated.new_zeros(1, d)])      # row e*c adds 0
+    slot_gate = slot_gate[e0 * c:(e0 + el) * c]
+    gated = ye.reshape(el * c, d) * slot_gate[:, None].to(ye.dtype)
+    gated = torch.cat([gated, gated.new_zeros(1, d)])      # last row adds 0
     token_slots = torch.empty_like(slot).scatter_(0, order, slot)
     token_slots = torch.sort(token_slots.reshape(n, top_k), dim=-1).values
+    if el != e:                         # other ranks' experts: the zero row
+        local = token_slots - e0 * c
+        token_slots = torch.where((local >= 0) & (local < el * c), local,
+                                  el * c)
     out = gated[token_slots[:, 0]]
     for r in range(1, top_k):
         out = out + gated[token_slots[:, r]]
+    if par is not None:
+        out = par.from_tp(out)
 
     return out.reshape(b, s, d).to(x.dtype), Routing(logits, probs,
                                                      expert_ids, keep)

@@ -16,6 +16,14 @@ width: (C·Bᵀ ∘ decay) then the sum over s; (decay ∘ Δx) then the sum
 over s against B; C against the prior state, then the decay.  Left to
 ``torch.einsum``'s own path, the first could form a (B, nc, H, Q, Q, P)
 product.  All of it is f32, whatever the activation dtype.
+
+On a mesh (``par`` set by ``launch.sharding.shard_model``) the training
+forward is tensor-parallel over "model": ``w_z``, ``w_x``, ``conv_x``,
+``conv_bias_x``, ``a_log``, ``d_skip``, ``dt_bias`` and ``norm_scale``
+hold this rank's SSD heads; ``w_b``, ``w_c``, ``w_dt`` and the B/C conv
+are replicated and computed whole, then narrowed to the rank's heads;
+``w_out`` is row-parallel and summed over "model", and the gated norm's
+sum of squares over d_inner is summed over "model" too.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ class Mamba2(nn.Module):
                  real_heads: int, conv_width: int, dtype, device=None):
         super().__init__()
         self.real_heads = real_heads
+        self.par = None
         d_in_pad = heads * (d_inner // real_heads)
         f32 = torch.float32
         shapes = {
@@ -189,7 +198,17 @@ def _gated_out(p: Mamba2, y: torch.Tensor, xh: torch.Tensor,
     norm(y * silu(z))) and the out projection."""
     y = y + xh.float() * p.d_skip[:, None]
     y = y.reshape(*z.shape).to(dtype)
-    return rms_norm(y * silu(z), p.norm_scale) @ p.w_out
+    par = p.par
+    if par is None or par.tp is None:
+        return rms_norm(y * silu(z), p.norm_scale) @ p.w_out
+    v = y * silu(z)
+    vf = v.float()
+    # the mean of squares over the whole d_inner: this rank's share summed
+    # over "model", on every rank, and every rank's gradient summed back
+    ss = par.to_tp(par.from_tp(torch.sum(vf * vf, dim=-1, keepdim=True)))
+    var = ss / (v.shape[-1] * par.tp_size)
+    out = (vf * torch.rsqrt(var + 1e-5) * p.norm_scale.float()).to(dtype)
+    return par.from_tp(out @ p.w_out)
 
 
 def ssm_forward(p: Mamba2, x: torch.Tensor, *, chunk: int,
@@ -197,8 +216,10 @@ def ssm_forward(p: Mamba2, x: torch.Tensor, *, chunk: int,
                 ) -> Tuple[torch.Tensor, SsmState]:
     """Full Mamba2 block (prefill).  x (B, S, D)."""
     n_state = p.n_state
-    z = x @ p.w_z                                           # (B, S, d_in_pad)
-    xr = x @ p.w_x
+    par = p.par
+    xt = x if par is None else par.to_tp(x)
+    z = xt @ p.w_z                                          # (B, S, d_in_pad)
+    xr = xt @ p.w_x
     bc = torch.cat([x @ p.w_b, x @ p.w_c], dim=-1)
     dt_raw = x @ p.w_dt                                     # (B, S, H)
     xh, new_lb_x = _dw_conv(xr, p.conv_x, p.conv_bias_x,
@@ -207,6 +228,10 @@ def ssm_forward(p: Mamba2, x: torch.Tensor, *, chunk: int,
         bc, torch.cat([p.conv_b, p.conv_c], dim=-1),
         torch.cat([p.conv_bias_b, p.conv_bias_c]),
         None if state is None else state.conv_bc)
+    if par is not None and par.tp is not None:
+        start, hl = par.tp_block(dt_raw.shape[-1])
+        bc_out = par.to_tp(bc_out)
+        dt_raw = par.to_tp(dt_raw)[..., start:start + hl]
     xh = xh.reshape(*xh.shape[:-1], p.heads, -1)
     dt = _softplus(dt_raw.float() + p.dt_bias)
     y, final = ssd_scan(xh, dt, p.a_log, bc_out[..., :n_state],

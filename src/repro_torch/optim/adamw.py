@@ -5,7 +5,13 @@ Parameters, gradients and the moments are dicts keyed by parameter name.
 The moments are float32 whatever the parameter's dtype; the update runs
 in float32 and writes the parameter back in its own dtype.  It updates
 the parameters and moments in place (the reference's jitted train step
-donates its state)."""
+donates its state).
+
+On a mesh (``mesh`` and each leaf's layout ``specs``, see
+``launch.sharding``) every rank updates its blocks; the moments mirror
+the parameters' layout, and the global norm adds each leaf's squares
+once: a leaf's local sum is summed over the axes that split it, never
+over those it is replicated on."""
 from __future__ import annotations
 
 import dataclasses
@@ -39,10 +45,21 @@ def adamw_init(params: Tensors) -> AdamWState:
     return AdamWState(step=0, m=zeros(), v=zeros())
 
 
-def global_norm(tree: Tensors) -> torch.Tensor:
-    """sqrt of the sum over leaves of Σ x², in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree.values()))
+def global_norm(tree: Tensors, mesh=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of Σ x², in float32; on a mesh over the
+    full leaves, whose blocks ``tree`` holds under ``specs``."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree.values()))
+    from repro_torch.core import mesh as mesh_mod
+    from repro_torch.launch.sharding import spec_axes
+    groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for n, x in tree.items():
+        axes = spec_axes(specs[n])
+        ss = torch.sum(torch.square(x.float()))
+        groups[axes] = ss if axes not in groups else groups[axes] + ss
+    return torch.sqrt(sum(mesh_mod.all_reduce(v, mesh, axes) if axes else v
+                          for axes, v in groups.items()))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -66,12 +83,13 @@ def _pow_f32(base: float, exp: float) -> float:
 
 @torch.no_grad()
 def adamw_update(grads: Tensors, state: AdamWState, params: Tensors,
-                 cfg: AdamWConfig, lr: Optional[float] = None
-                 ) -> Tuple[Tensors, AdamWState, torch.Tensor]:
+                 cfg: AdamWConfig, lr: Optional[float] = None, mesh=None,
+                 specs=None) -> Tuple[Tensors, AdamWState, torch.Tensor]:
     """Returns (params, new state, pre-clip grad norm); ``params`` and the
-    state's moments are updated in place."""
+    state's moments are updated in place.  On a ``mesh`` the leaves are
+    this rank's blocks under ``specs``."""
     lr = cfg.lr if lr is None else float(lr)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     scale = _clip_scale(gnorm, cfg.clip_norm) if cfg.clip_norm else None
     step = state.step + 1
     b1c = float(1.0 - torch.tensor(_pow_f32(cfg.b1, step)))

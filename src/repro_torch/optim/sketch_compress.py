@@ -13,9 +13,17 @@ On the card the sketch of the flattened gradient is K7 and its estimate
 K8, one launch each a chunk of ``sketch.TENSOR_CHUNK`` coordinates
 (``sketch.tensor_sketch_update`` / ``tensor_sketch_estimate``).  The
 error and momentum are flat float32 buffers, one copy each, updated in
-place; at 1.1·10⁹ coordinates each is 4.4 GB.  Merging over a mesh
-(the reference's ``axis_names``) is not here: ``compress_and_reduce``
-is the reference's single-process path, whose merge is the identity.
+place; at 1.1·10⁹ coordinates each is 4.4 GB.
+
+On a mesh (``compress_and_reduce(axis_names=, mesh=)``, the reference's
+data-parallel algorithm) each data rank sketches its own gradient (its
+share of the global batch's), the (R, C) tables are all-reduced over
+``axis_names`` (``core.sketch.psum_merge``), and every rank runs the
+same ``decompress`` on it.  The all-reduce hands every rank the same
+bits, so error feedback and momentum stay the same on every rank.  On
+integer-valued gradients the merged table is one device's sketch of the
+summed gradient bit for bit; on float gradients the order of the adds
+rounds it within (W - 1)·2⁻²⁴·Σ_w |table_w| of the exact sum (W ranks).
 """
 from __future__ import annotations
 
@@ -133,10 +141,27 @@ def decompress(merged: CountSketch, grads_like: Tensors,
                                 sizes=state.sizes), density)
 
 
+def merged_sketch(grads: Tensors, state: SketchCompressState,
+                  cfg: SketchCompressConfig, axis_names=None, mesh=None
+                  ) -> CountSketch:
+    """This rank's sketch of its gradient, all-reduced over the mesh
+    dimensions ``axis_names`` (innermost first); the rank's own sketch
+    without them."""
+    sk = local_sketch(grads, state, cfg)
+    if axis_names:
+        if mesh is None:
+            raise ValueError("merging over axis_names needs the mesh")
+        sk = sketch_mod.psum_merge(sk, mesh, axis_names)
+    return sk
+
+
 def compress_and_reduce(grads: Tensors, state: SketchCompressState,
-                        cfg: SketchCompressConfig
+                        cfg: SketchCompressConfig, axis_names=None,
+                        mesh=None
                         ) -> Tuple[Dict[str, torch.Tensor],
                                    SketchCompressState, torch.Tensor]:
-    """One full compression round on one process (the reference's
-    ``axis_names=None``: the merge is the identity)."""
-    return decompress(local_sketch(grads, state, cfg), grads, state, cfg)
+    """One full compression round.  ``axis_names``: the dimensions of
+    ``mesh`` to merge the sketches over (None: one process, the merge is
+    the identity)."""
+    return decompress(merged_sketch(grads, state, cfg, axis_names, mesh),
+                      grads, state, cfg)

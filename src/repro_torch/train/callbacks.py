@@ -8,7 +8,9 @@ a fixed grid and streamed into a Count Sketch (K7 on the card, one
 launch an observe).  At report time the heavy hitters — the densest
 cells of representation space over every token seen — come out of the
 sketch (K8, one launch a report).  The sketch is linear, so workers'
-sketches merge by addition.  For MoE models the same machinery over
+sketches merge by addition: :meth:`ActivationSketcher.merged` adds
+another worker's, or every rank's of a mesh (an all-reduce of the
+table).  For MoE models the same machinery over
 router logits detects routing collapse.
 """
 from __future__ import annotations
@@ -91,9 +93,18 @@ class ActivationSketcher:
             "tokens_seen": self.tokens_seen,
         }
 
-    def merged(self, other: "ActivationSketcher") -> sketch_mod.CountSketch:
-        """Cross-worker merge (linearity): local sketches simply add."""
-        return sketch_mod.merge(self._sk, other._sk)
+    def merged(self, other: Optional["ActivationSketcher"] = None, *,
+               mesh=None, axes=None) -> sketch_mod.CountSketch:
+        """Cross-worker merge (linearity): local sketches simply add —
+        ``other``'s, or every rank's over the ``mesh`` dimensions ``axes``
+        (innermost first; an all-reduce of the table, whose integer counts
+        add to the same bits in any order)."""
+        if other is not None:
+            return sketch_mod.merge(self._sk, other._sk)
+        if mesh is None or not axes:
+            raise ValueError("merged() needs another sketcher or a mesh and "
+                             "its axes")
+        return sketch_mod.psum_merge(self._sk, mesh, axes)
 
 
 @dataclasses.dataclass

@@ -7,14 +7,21 @@
 Plain callables on the model's device.  A train state is ``{"model": LM,
 "opt": AdamWState | AdafactorState, "step": int}``; the step updates the
 weights and the optimizer's state in place and returns the state.
+
+On a mesh (``init_train_state(mesh=)``) each rank holds its blocks of the
+weights (``launch.sharding.shard_model``), takes its rows of the batch,
+and the step computes what one device's step computes on the whole
+batch; the step reads the mesh and the layouts from the model.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 
+from repro_torch.core import mesh as mesh_mod
+from repro_torch.launch import sharding as sh
 from repro_torch.models import model as model_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import (AdafactorConfig, AdamWConfig, adafactor_init,
@@ -37,22 +44,75 @@ class TrainStepConfig:
 
 def init_optimizer(cfg: ModelConfig, tcfg: TrainStepConfig,
                    model: model_mod.LM):
-    """The optimizer's zero state for ``model``'s weights."""
+    """The optimizer's zero state for ``model``'s weights (a sharded
+    model's blocks: AdamW's moments as the blocks, Adafactor's statistics
+    of the full leaves)."""
     params = dict(model.named_parameters())
     if tcfg.optimizer == "adamw":
         return adamw_init(params)
-    return adafactor_init(params, stacks=model_mod.param_stacks(cfg, model))
+    shapes = None
+    if getattr(model, "par", None) is not None:
+        shapes = {n: sh.full_shape(p.shape, model.specs[n], model.par.mesh)
+                  for n, p in params.items()}
+    return adafactor_init(params, stacks=model_mod.param_stacks(cfg, model),
+                          shapes=shapes)
 
 
 def init_train_state(cfg: ModelConfig, tcfg: TrainStepConfig,
-                     generator: torch.Generator, device=None, tp: int = 1
+                     generator: torch.Generator, device=None, tp: int = 1,
+                     mesh=None, policy: Optional[sh.ShardingPolicy] = None
                      ) -> TrainState:
     """Weights drawn from ``generator`` on ``device`` (the card unless the
-    caller names another), the optimizer's zero state, step 0."""
-    model = model_mod.init_params(cfg, generator, tp=tp, device=device)
+    caller names another), the optimizer's zero state, step 0.  With a
+    ``mesh``: this rank's blocks of the weights under ``policy``, each
+    part cut as soon as it is drawn (``models.model.init_params``)."""
+    model = model_mod.init_params(cfg, generator, tp=tp, device=device,
+                                  mesh=mesh, policy=policy)
     model.requires_grad_(True)
     return {"model": model, "opt": init_optimizer(cfg, tcfg, model),
             "step": 0}
+
+
+GRAD_BUCKET_BYTES = 1 << 28     # gradients summed in one collective, at most
+
+
+@torch.no_grad()
+def sync_grads(grads: Dict[str, torch.Tensor], specs: Mapping[str, Any],
+               mesh) -> Dict[str, torch.Tensor]:
+    """Sum each gradient over the data axes its leaf is replicated on, in
+    place.  An FSDP leaf's gradient comes out of the backward pass
+    already reduce-scattered over "data" (the gather's adjoint); a
+    leaf replicated over "model" gets its whole gradient on every model
+    rank.  Leaves that sum over the same axes share a collective, up to
+    GRAD_BUCKET_BYTES."""
+    from repro_torch.launch.mesh import dp_axes
+    dp = dp_axes(mesh)
+    buckets: Dict[Any, list] = {}
+    for n, g in grads.items():
+        split = set(sh.spec_axes(specs[n]))
+        axes = tuple(a for a in dp if a not in split
+                     and mesh_mod.axis_size(mesh, a) > 1)
+        if axes:
+            buckets.setdefault((axes, g.dtype), []).append(n)
+    for (axes, _), names in buckets.items():
+        start = 0
+        while start < len(names):
+            group, size = [], 0
+            for n in names[start:]:
+                nbytes = grads[n].numel() * grads[n].element_size()
+                if group and size + nbytes > GRAD_BUCKET_BYTES:
+                    break
+                group.append(n)
+                size += nbytes
+            start += len(group)
+            flat = mesh_mod.all_reduce(
+                torch.cat([grads[n].reshape(-1) for n in group]), mesh, axes)
+            off = 0
+            for n in group:
+                k = grads[n].numel()
+                grads[n].copy_(flat[off:off + k].view_as(grads[n]))
+                off += k
+    return grads
 
 
 def make_train_step(cfg: ModelConfig,
@@ -61,7 +121,14 @@ def make_train_step(cfg: ModelConfig,
     its backward, the cosine schedule's rate for the step, then AdamW
     (metrics' ``grad_norm`` the pre-clip norm) or Adafactor
     (``grad_norm`` 0).  Metrics are tensors: ``loss``, ``lb_loss``,
-    ``z_loss``, ``grad_norm``, ``lr``, ``total_loss``."""
+    ``z_loss``, ``grad_norm``, ``lr``, ``total_loss`` (and an MoE
+    model's ``dropped_frac``, the mean over its MoE layers).
+
+    A sharded model (``sharding.shard_model``) takes this rank's rows of
+    the batch; its gradients leave the backward pass in the parameters'
+    layout (the model's ``specs``): reduce-scattered over "data" on FSDP
+    leaves, then summed over every data axis a leaf is replicated on
+    (:func:`sync_grads`)."""
     if tcfg.optimizer == "adamw":
         ocfg = AdamWConfig(lr=tcfg.peak_lr)
     elif tcfg.optimizer == "adafactor":
@@ -71,6 +138,9 @@ def make_train_step(cfg: ModelConfig,
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state["model"].requires_grad_(True)
+        par = getattr(model, "par", None)
+        mesh = None if par is None else par.mesh
+        specs = None if par is None else model.specs
         model.zero_grad(set_to_none=True)
         total, metrics = model_mod.forward_train(
             cfg, model, batch, q_chunk=tcfg.q_chunk, remat=tcfg.remat,
@@ -79,15 +149,19 @@ def make_train_step(cfg: ModelConfig,
         params = dict(model.named_parameters())
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
                  for n, p in params.items()}
+        if mesh is not None:
+            sync_grads(grads, specs, mesh)
         lr = cosine_schedule(state["step"], tcfg.warmup_steps,
                              tcfg.total_steps, tcfg.peak_lr)
         if tcfg.optimizer == "adamw":
             _, opt, gnorm = adamw_update(grads, state["opt"], params, ocfg,
-                                         lr=float(lr))
+                                         lr=float(lr), mesh=mesh,
+                                         specs=specs)
         else:
             _, opt = adafactor_update(
                 grads, state["opt"], params, ocfg, lr=float(lr),
-                stacks=model_mod.param_stacks(cfg, model))
+                stacks=model_mod.param_stacks(cfg, model), mesh=mesh,
+                specs=specs)
             gnorm = torch.zeros(())
         del grads
         model.zero_grad(set_to_none=True)
