@@ -187,7 +187,7 @@ def main(argv=None) -> int:
         def call(name):
             rc = fns[name](table.data_ptr(), *ptrs,
                            *(p.data_ptr() for p in params),
-                           outs[name].data_ptr(), q, 0, r, l2c,
+                           outs[name].data_ptr(), None, q, 0, r, l2c,
                            torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"{name}: CUDA error {rc}")

@@ -23,8 +23,9 @@ Phases, each failing the run (non-zero exit) if it fails:
                  R ∈ {1, 16} × log2_cols ∈ {6, 18, 22}, integer and
                  weighted; K8 (hash, gather and median in one kernel)
                  at Q = 40 000 with (R, C) ∈ {(16, 2^18), (8, 2^20),
-                 (3, 2^18)}, explicit keys and the keys (0, start + j),
-                 by int32 view (signed zeros count);
+                 (3, 2^18), (129, 2^16), (300, 2^16), (1024, 2^14)}
+                 (the last three a warp a query), explicit keys and the
+                 keys (0, start + j), by int32 view (signed zeros count);
 3. main        — ``pipeline.run`` at the paper's cancer configuration
                  (``CANCER``, UMAP, exact kNN) on
                  ``gaussian_mixture(26_000_000, dims=8)``, the paper's 26M
@@ -209,7 +210,8 @@ Phases, each failing the run (non-zero exit) if it fails:
                  first chunk equal to its plain version by int32 view;
                  K7 and K8 timed at T3's chunk (``per_call.train`` of
                  the kernels line);
-16. lm-mesh    — the LM stack's training on a mesh (``launch/sharding.py``:
+16. lm-mesh    — the LM stack's training and serving on a mesh
+                 (``launch/sharding.py``:
                  FSDP over "data", TP and EP over "model"), path M's
                  layouts (4 gloo ranks sharing the card as a (2, 2)
                  ("data", "model") mesh, 1 nccl rank as (1, 1), 4 nccl
@@ -245,7 +247,30 @@ Phases, each failing the run (non-zero exit) if it fails:
                  peak a card (and after the draw); (f) a
                  Trainer's checkpoints on the mesh restored onto one
                  device equal to the gathered shards, and a resume on the
-                 mesh bit-exact.  ``--only lm-mesh [--layouts ...]`` runs
+                 mesh bit-exact; (g) serving on the mesh
+                 (``init_decode_state(mesh=)``: the batch over "data"
+                 when it fills it, the caches' sequence over "model", or
+                 over every axis for one sequence): (g1) every SMOKE
+                 config in f32 at B 4 and B 1, prefill and 6 decode steps
+                 teacher-forced, within LM_TWIN_TOL·max|logits| of one
+                 device's on the same card from the same weights; (g2)
+                 llama3.2-3b at full width, depth 2, B 2 x prompt 256, and
+                 qwen3-moe-235b-a22b at full width, depth 1, B 2 x prompt
+                 128, f32, the same bar (TP blocks only on ranks sharing
+                 a card); (g3) M-L1, phase lm's L1 cell (llama3.2-3b
+                 bf16, B 8 x prompt 512, gen 32; 2 layers and gen 3 on
+                 gloo4), (g4) M-LL (B 1 x prompt 8 192, gen 16, the KV
+                 sequence over every axis), (g5) M-L2 on 4 cards
+                 (jamba-v0.1-52b at full width, 8 layers): weights cut at
+                 the draw, the same tokens twice, finite logits; prefill
+                 ms, decode p50/p99, tok/s, collectives' ms and launches
+                 a step, peak a rank, caches a rank against one device's;
+                 beside each, this process's dry run of a decode step of
+                 the cell on the layout (``launch/dryrun.py``: dot FLOPs,
+                 collective bytes by kind, the roofline's three terms and
+                 bound), and the gate that each rank's collectives,
+                 counted in one real decode step, equal its dry run's
+                 call for call.  ``--only lm-mesh [--layouts ...]`` runs
                  this phase alone.
 
 Prints the nvidia-smi name/power-limit line, then one
@@ -286,6 +311,7 @@ CHECK_KNN_TILES = ((1, 128, 8), (37, 128, 8), (5, 200, 3), (3, 64, 64),
 RECALL_ROWS = 8192                  # path A's recall sample
 STREAM_SLICE = 1_000_003            # path I's host slices, ragged vs 65 536
 CHECK_SKETCH_QUERIES = 40_000       # K8: the CANCER candidate pool
+K8_WIDE = (300, 16)                 # K8 timed past 128 rows: (R, log2 C)
 SERVICE_SHARDS = 4                  # path V: sites of 6.5M points each
 SERVICE_FAULTS = dict(seed=1, drop_shards=(3,), flaky=0.5)  # shards 1, 2
 #                                     fail their first attempt only
@@ -874,7 +900,8 @@ def phase_check_sketch(device):
         f"1e-5·Σ|contrib| per cell)")
     q = CHECK_SKETCH_QUERIES
     negs = {}
-    for r, l2c in ((16, 18), (8, 20), (3, 18)):
+    for r, l2c in ((16, 18), (8, 20), (3, 18), (129, 16), (300, 16),
+                   (1024, 14)):
         params = hashing.make_params(prng.key(r, device=device), r)
         hi, lo = key_stream(device, q, 10 ** 12, r)
         table = torch.randn((r, 1 << l2c), generator=torch.Generator(
@@ -883,7 +910,8 @@ def phase_check_sketch(device):
         table[:, 1::5] = table[:, 1::5].round().clamp(-2, 2)
         negs[r] = check_sketch_estimate(table, params, hi, lo, 3 << 30)
     log(f"[check] sketch_estimate_table at Q={q}, (R, C) in (16, 2^18), "
-        f"(8, 2^20), (3, 2^18) (the general path), explicit keys and the "
+        f"(8, 2^20), (3, 2^18) (the general path), (129, 2^16), (300, 2^16)"
+        f", (1024, 2^14) (a warp a query), explicit keys and the "
         f"keys (0, 3·2^30 + j) into a slice, a third of the cells 0 and a "
         f"fifth small integers: bit-exact by int32 view ({negs} -0.0 "
         f"estimates by R)")
@@ -2945,7 +2973,7 @@ def phase_sketch_kernels(device, pts, cfg, state, runs):
     (Q = 40 000): checked and timed against the plain versions, the
     library calls and the byte bounds.  Returns their kernels-line entries."""
     import torch
-    from repro_torch.core import candidates, hashing, pipeline, quantize
+    from repro_torch.core import candidates, hashing, pipeline, prng, quantize
     from repro_torch.kernels import hash_points as hp_mod
     from repro_torch.kernels import sketch_update as su
 
@@ -3043,6 +3071,16 @@ def phase_sketch_kernels(device, pts, cfg, state, runs):
     q_hi, q_lo = state.cands.key_hi.contiguous(), state.cands.key_lo.contiguous()
     k8 = k8_row("sketch_estimate_table", state.sketch.table, hp, q_hi, q_lo,
                 None, 100)
+    # R past the shared-memory path: a warp a query on the same keys
+    wide = hashing.make_params(prng.key(K8_WIDE[0], device=device),
+                               K8_WIDE[0])
+    wide_table = torch.randn((K8_WIDE[0], 1 << K8_WIDE[1]), device=device,
+                             generator=torch.Generator(device=device
+                                                       ).manual_seed(300))
+    k8["per_call"] = {"wide": k8_row(
+        f"sketch_estimate_table R {K8_WIDE[0]}", wide_table, wide, q_hi,
+        q_lo, None, 20)}
+    del wide_table
 
     def entry(name, row, line, path):
         return dict({"name": name, "route": "cuda",
@@ -3902,6 +3940,29 @@ LM_MESH_T3_GLOO_LAYERS = 11
 # gathered over "data" for its backward (13 GB) and the activations; S
 # 2048 uncut (68.27 GiB a card at its peak on an H100 80GB)
 LM_MESH_J = dict(batch=4, seq=2048, steps=3, layers=8)
+# (g) serving on a mesh.  (g1) every SMOKE config in f32, B 4 (the batch
+# over "data", the caches' sequence over "model") and B 1 (the sequence
+# over every axis), prefill then 6 decode steps teacher-forced with one
+# device's greedy tokens
+LM_MESH_SERVE_SMOKE = dict(batches=(4, 1), prompt=32, steps=6)
+# (g2) full width in f32: (arch, layers, batch, prompt, decode steps);
+# ranks sharing one card hold TP blocks only (no FSDP: each step would
+# gather the f32 vocabulary blocks through the host)
+LM_MESH_SERVE_WIDE = (("llama3.2-3b", 2, 2, 256, 6),
+                      ("qwen3-moe-235b-a22b", 1, 2, 128, 6))
+# (g3) M-L1: phase lm's L1 cell on the mesh, bf16, weights cut at the
+# draw; (g4) M-LL: one sequence of 8 192, its KV sequence over every
+# axis; (g5) on 4 cards, M-L2: L2's cell.  Ranks sharing one card run 2
+# layers and gen 3 (every collective is staged through the host: ~3 s a
+# decode step, most of it the vocabulary block's two ~394 MB gathers)
+LM_MESH_SERVE = {
+    "M-L1": dict(arch="llama3.2-3b", layers=None, batch=8, prompt=512,
+                 gen=32),
+    "M-LL": dict(arch="llama3.2-3b", layers=None, batch=1, prompt=8192,
+                 gen=16),
+    "M-L2": dict(arch="jamba-v0.1-52b", layers=8, batch=8, prompt=512,
+                 gen=32, cards=4)}
+LM_MESH_SERVE_GLOO = dict(layers=2, gen=3)
 
 
 def lm_mesh_plan(device_type="cuda", smoke_only=False):
@@ -3909,7 +3970,10 @@ def lm_mesh_plan(device_type="cuda", smoke_only=False):
     return dict(device_type=device_type, smoke_only=smoke_only,
                 smoke=LM_MESH_SMOKE, wide=LM_MESH_WIDE, t1=LM_MESH_T1,
                 t1_gloo_layers=LM_MESH_T1_GLOO_LAYERS, t3=LM_MESH_T3,
-                t3_gloo_layers=LM_MESH_T3_GLOO_LAYERS, jamba=LM_MESH_J)
+                t3_gloo_layers=LM_MESH_T3_GLOO_LAYERS, jamba=LM_MESH_J,
+                serve_smoke=LM_MESH_SERVE_SMOKE,
+                serve_wide=LM_MESH_SERVE_WIDE, serve=LM_MESH_SERVE,
+                serve_gloo=LM_MESH_SERVE_GLOO)
 
 
 def lm_mesh_rank(rank, world, backend, shared, tmp, plan, queue):
@@ -3978,9 +4042,9 @@ class _RankCtx:
 
 def _lm_mesh_rank(rank, world, backend, shared, tmp, plan):
     """Phase lm-mesh on one rank: (a) the SMOKE twins, (b) the full-width
-    twins, (c) M-T1, (d) M-T3, (e) M-J (4 cards), (f) checkpoints.  Each
-    gate raises here; returns the numbers the parent prints and the
-    launches of (d)'s steps."""
+    twins, (c) M-T1, (d) M-T3, (e) M-J (4 cards), (f) checkpoints, (g)
+    serving on the mesh.  Each gate raises here; returns the numbers the
+    parent prints and the launches of (d)'s steps."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     if shared and plan["device_type"] == "cuda":
@@ -4002,7 +4066,7 @@ def _lm_mesh_rank(rank, world, backend, shared, tmp, plan):
     parts += [("c", lm_mesh_t1), ("d", lm_mesh_t3)]
     if world == 4 and not shared:           # a card a rank
         parts.append(("e", lm_mesh_jamba))
-    parts.append(("f", lm_mesh_ckpt))
+    parts += [("f", lm_mesh_ckpt), ("g", lm_mesh_serve)]
     for key, fn in parts:
         t0 = time.perf_counter()
         rep[key] = fn(ctx)
@@ -4626,6 +4690,268 @@ def lm_mesh_ckpt(ctx):
     return dict(resumed=resumed, restored=restored)
 
 
+def lm_mesh_serve_twin(ctx, cfg, batch, prompt, steps, on_card, pol):
+    """(g1)/(g2): ``cfg``'s prefill of ``prompt`` tokens and ``steps``
+    greedy decode steps on one device, then the same weights cut to this
+    rank's blocks under ``pol`` (in place) through the sharded prefill
+    and decode steps fed the same tokens: every step's logits (the rank's
+    rows) within LM_TWIN_TOL·max|logits| of one device's.  Returns the
+    worst ratio."""
+    import torch
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import tp_size
+    from repro_torch.train import steps as st
+
+    mesh, tp = ctx.mesh, tp_size(ctx.mesh)
+    prefix = cfg.num_prefix if cfg.frontend == "vision" else 0
+    cache = prefix + prompt + steps + 1
+    inputs = serve_mod.make_batch(cfg, batch, prompt,
+                                  torch.Generator().manual_seed(7), ctx.dev)
+    decode = st.make_decode_step(cfg)
+    together = not on_card or ctx.world * 2 * 4 * cfg.param_count() \
+        <= LM_MESH_TWINS_TOGETHER_BYTES
+    for mine in (True,) if together else ctx.turns():
+        if not mine:
+            continue
+        model = _draw(cfg, tp, ctx.dev, on_card)
+        digest = _digest(model)
+        logits, state = st.make_prefill_step(cfg, cache, tp=tp)(model,
+                                                                inputs)
+        one, fed = [logits.cpu()], []
+        for _ in range(steps):
+            fed.append(torch.argmax(logits, -1))
+            logits, state = decode(model, fed[-1][:, None], state)
+            one.append(logits.cpu())
+        del state, logits
+        sh.shard_model(model, mesh, pol)
+        ctx.free()
+    _same_draw_everywhere(ctx, digest)
+    logits, state = st.make_prefill_step(cfg, cache, mesh=mesh,
+                                         policy=pol)(model, inputs)
+    lay = state["layout"]
+    got = [logits.cpu()]
+    for tok in fed:
+        logits, state = decode(model, lay.rows(tok)[:, None], state)
+        got.append(logits.cpu())
+    worst = 0.0
+    for a, b in zip(one, got):
+        want = lay.rows(a)
+        worst = max(worst, float((b - want).abs().max())
+                    / max(float(a.abs().max()), 1e-30))
+    del model, state
+    ctx.free()
+    if worst > LM_TWIN_TOL:
+        raise AssertionError(f"[lm-mesh] (g) {cfg.arch_id} B {batch}: "
+                             f"logits {worst:.3e}·max|logits| off one "
+                             f"device's")
+    return {"err": worst, "seq_axes": list(lay.seq_axes),
+            "batch_axes": list(lay.batch_axes), "slots": lay.slots}
+
+
+def _cache_bytes(state) -> int:
+    return sum(t.numel() * t.element_size() for g in ("layers", "cross")
+               for c in state.get(g, ()) for t in c.values())
+
+
+def _launches(ctx, fn):
+    """Kernel launches (CUDA records of torch.profiler) of one call of
+    ``fn`` on this rank's card; None off the card."""
+    if not ctx.cuda:
+        fn()
+        return None
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(c for _, c, _ in device_kernels(prof)[1])
+
+
+def lm_mesh_serve_cell(ctx, name, p):
+    """(g3)-(g5): ``p``'s cell on the mesh in bf16, the weights cut at the
+    draw: ``serve`` once, then the same prefill and greedy decode steps by
+    hand, each step timed with its collectives (equal tokens both times,
+    finite logits); one more decode step, profiled and under
+    ``count_collectives``.  Returns the numbers (g) prints and the
+    counted calls."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import mesh as mesh_mod
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import model as model_mod
+    from repro_torch.train import steps as st
+
+    smoke = ctx.plan["smoke_only"]
+    cfg = get_config(p["arch"], smoke=smoke)
+    layers, gen, prompt = p["layers"], p["gen"], p["prompt"]
+    cut = ""
+    if ctx.shared and not smoke:
+        layers, gen = ctx.plan["serve_gloo"]["layers"], \
+            ctx.plan["serve_gloo"]["gen"]
+        cut = (f" (ranks sharing one card: {layers} layers, gen {gen}; "
+               f"every collective is staged through the host)")
+    if smoke:
+        prompt, gen = min(prompt, 64), min(gen, 4)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    b, mesh, pol = p["batch"], ctx.mesh, sh.ShardingPolicy()
+    _reset_peak(ctx)
+    t0 = time.perf_counter()
+    model = model_mod.init_params(
+        cfg, torch.Generator(device=ctx.dev).manual_seed(0), device=ctx.dev,
+        mesh=mesh, policy=pol)
+    ctx.sync()
+    draw_s = time.perf_counter() - t0
+    first = serve_mod.serve(cfg, b, prompt, gen, seed=0, device=ctx.dev,
+                            model=model, mesh=mesh, policy=pol)
+    cache = prompt + gen
+    prompt_batch = serve_mod.make_batch(cfg, b, prompt,
+                                        torch.Generator().manual_seed(1),
+                                        ctx.dev)
+    nccl = ctx.backend == "nccl"
+    with CollectiveClock(nccl, sync_card=ctx.cuda) as clock:
+        ctx.sync()
+        t1 = time.perf_counter()
+        logits, state = st.make_prefill_step(cfg, cache, mesh=mesh,
+                                             policy=pol)(model, prompt_batch)
+        ctx.sync()
+        prefill_host_ms = (time.perf_counter() - t1) * 1e3
+        prefill_coll = clock.ms()
+    lay = state["layout"]
+    decode = st.make_decode_step(cfg)
+    toks, finite = [torch.argmax(logits, -1)], bool(torch.isfinite(
+        logits).all())
+    ms, coll = [], []
+    for _ in range(gen - 1):
+        with CollectiveClock(nccl, sync_card=ctx.cuda) as clock:
+            ctx.sync()
+            if ctx.cuda:
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+            t1 = time.perf_counter()
+            logits, state = decode(model, toks[-1][:, None], state)
+            toks.append(torch.argmax(logits, -1))
+            if ctx.cuda:
+                e1.record()
+            ctx.sync()
+            ms.append(e0.elapsed_time(e1) if ctx.cuda
+                      else (time.perf_counter() - t1) * 1e3)
+            coll.append(clock.ms())
+        finite = finite and bool(torch.isfinite(logits).all())
+    tokens = torch.stack(toks, 1)
+    if lay.batch_axes:
+        tokens = mesh_mod.all_gather_dim(tokens, mesh, lay.batch_axes, 0)
+    same = torch.equal(tokens, first.tokens)
+    finite = finite and all(bool(torch.isfinite(lg).all())
+                            for lg in first.logits)
+    with mesh_mod.count_collectives() as counter:
+        launches = _launches(ctx, lambda: decode(
+            model, toks[-1][:, None], state))
+    peak, reserved = _peak(ctx)
+    one_device = _cache_bytes(model_mod.init_decode_state(
+        cfg, b, cache, device="meta"))
+    out = dict(arch=p["arch"], layers=cfg.num_layers, batch=b,
+               prompt=prompt, gen=gen, cut=cut, cache_len=cache,
+               draw_s=draw_s, prefill_ms=first.prefill_ms,
+               prefill_host_ms=prefill_host_ms, prefill_coll_ms=prefill_coll,
+               decode_ms=first.decode_ms, ms=ms, coll_ms=coll,
+               launches=launches, calls=counter.calls, peak_gib=peak,
+               reserved_gib=reserved, cache_bytes=_cache_bytes(state),
+               one_device_cache_bytes=one_device, same=same, finite=finite,
+               seq_axes=list(lay.seq_axes), batch_axes=list(lay.batch_axes))
+    del model, state, first, logits
+    ctx.free()
+    if not (same and finite):
+        raise AssertionError(f"[lm-mesh] (g) {name}: tokens equal twice "
+                             f"{same}, logits finite {finite}")
+    return out
+
+
+def lm_mesh_serve(ctx):
+    """(g): serving on the mesh: (g1) the SMOKE twins at B 4 and B 1, (g2)
+    the full-width twins, (g3) M-L1, (g4) M-LL, (g5) M-L2 on 4 cards."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import sharding as sh
+    out = {"g1": {}, "g2": [], "cells": {}}
+    sm = ctx.plan["serve_smoke"]
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        for b in sm["batches"]:
+            out["g1"][f"{arch} B {b}"] = lm_mesh_serve_twin(
+                ctx, cfg, b, sm["prompt"], sm["steps"], False,
+                sh.ShardingPolicy())
+    if not ctx.plan["smoke_only"]:
+        for arch, layers, b, prompt, steps in ctx.plan["serve_wide"]:
+            cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                      param_dtype="float32",
+                                      compute_dtype="float32")
+            t0 = time.perf_counter()
+            w = lm_mesh_serve_twin(ctx, cfg, b, prompt, steps, True,
+                                   sh.ShardingPolicy(fsdp=not ctx.shared))
+            w.update(arch=arch, layers=layers, batch=b, prompt=prompt,
+                     steps=steps, fsdp=not ctx.shared,
+                     secs=time.perf_counter() - t0)
+            out["g2"].append(w)
+    for name, p in ctx.plan["serve"].items():
+        if p.get("cards", 1) > 1 and (ctx.world != p["cards"] or ctx.shared):
+            continue
+        out["cells"][name] = lm_mesh_serve_cell(ctx, name, p)
+    return out
+
+
+def lm_mesh_serve_dryrun(name, world, reps, plan):
+    """Beside (g3)-(g5): each cell's dry run (``launch/dryrun.py``) of one
+    decode step on this layout's mesh for every rank, in this process
+    (a fake group of the mesh's size): rank 0's record and roofline
+    printed, and each rank's counted calls of its real decode step held
+    to its dry run's, call for call."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, roofline
+    shape = (2, world // 2) if world % 2 == 0 else (1, world)
+    names = ("data", "model")
+    for cell, c in reps[0]["g"]["cells"].items():
+        cfg = dataclasses.replace(get_config(c["arch"],
+                                             smoke=plan["smoke_only"]),
+                                  num_layers=c["layers"])
+        for r in reps:
+            rec = dryrun.record(cfg, "decode", c["batch"], c["cache_len"],
+                                shape, names, rank=r["rank"])
+            got = r["g"]["cells"][cell]["calls"]
+            want = rec["calls"]
+            if got != want:
+                raise AssertionError(
+                    f"[lm-mesh] (g) {name} {cell} rank {r['rank']}: the "
+                    f"counted collectives of a decode step {got[:4]}... "
+                    f"({len(got)} calls) differ from the dry run's "
+                    f"{want[:4]}... ({len(want)})")
+            if r["rank"] == 0:
+                rec.update(arch=c["arch"], shape=cell, mesh=str(shape),
+                           overrides={"num_layers": c["layers"]})
+                terms = roofline.roofline_terms(rec)
+                bound = max(terms["compute_s"], terms["memory_s"],
+                            terms["collective_s"]) * 1e3
+                coll = rec["collectives"]
+                log(f"[lm-mesh] {name} (g) {cell} dry run of a decode step "
+                    f"(rank 0 of {shape}, meta device, fake group): dot "
+                    f"FLOPs {rec['counts']['flops']:.6g} a rank; "
+                    f"collectives {coll['total']} B in {coll['num_ops']} "
+                    f"calls by kind {coll['per_kind']} (across hosts "
+                    f"{coll['dcn']} B); roofline at the H100 defaults: "
+                    f"compute {terms['compute_s'] * 1e3:.4f} ms, memory "
+                    f"{terms['memory_s'] * 1e3:.4f} ms, collective "
+                    f"{terms['collective_s'] * 1e3:.4f} ms, bound "
+                    f"{bound:.4f} ms ({terms['bottleneck']}); memory a rank "
+                    f"{terms['mem_per_dev_gb']} GB without temporaries; "
+                    f"every rank's counted calls == its dry run's: "
+                    f"{len(want)} calls, {sum(x[2] for x in want)} B")
+
+
 def phase_lm_mesh(device, layouts=None, plan=None):
     """Phase lm-mesh: the LM stack's training on a mesh (see the module
     docstring), each layout's ranks spawned (the kernels built by this
@@ -4656,6 +4982,7 @@ def phase_lm_mesh(device, layouts=None, plan=None):
                              target=lm_mesh_rank, timeout=LM_MESH_TIMEOUT_S)
             wall = time.perf_counter() - t0
             lm_mesh_report(name, world, reps, wall, smi)
+            lm_mesh_serve_dryrun(name, world, reps, plan)
             for r in reps:
                 for s, ls in r["d"]["launches"].items():
                     PATH_LAUNCHES[f"LM:{name}:T3:{s}:r{r['rank']}"] = ls
@@ -4751,6 +5078,47 @@ def lm_mesh_report(name, world, reps, wall, smi):
     log(f"[lm-mesh] {name} (f) checkpoints: restored onto one device "
         f"bit-equal {r0['f']['restored']}, resumed on the mesh bit-exact "
         f"{all(r['f']['resumed'] for r in reps)}")
+    g = r0["g"]
+    for key, w in g["g1"].items():
+        worst = max(r["g"]["g1"][key]["err"] for r in reps)
+        log(f"[lm-mesh] {name} (g1) {key} f32: prefill + 6 teacher-forced "
+            f"decode steps, max |d logits| {worst:.3e}·max|logits| of one "
+            f"device's (bar {LM_TWIN_TOL}); sequence over {w['seq_axes']}, "
+            f"batch over {w['batch_axes']}, {w['slots']} slots a rank")
+    for i, w in enumerate(g["g2"]):
+        worst = max(r["g"]["g2"][i]["err"] for r in reps)
+        log(f"[lm-mesh] {name} (g2) {w['arch']} full width, {w['layers']} "
+            f"layer(s), f32, B {w['batch']} x prompt {w['prompt']}, "
+            f"{w['steps']} decode steps, FSDP {w['fsdp']}: max |d logits| "
+            f"{worst:.3e}·max|logits| (bar {LM_TWIN_TOL}), {w['secs']:.1f} s")
+    for r in reps:
+        for cell, c in r["g"]["cells"].items():
+            steps = c["ms"]
+            p50 = statistics.median(steps)
+            p99 = max(steps) if len(steps) < 100 else \
+                statistics.quantiles(steps, n=100)[98]
+            coll = statistics.median(c["coll_ms"])
+            log(f"[lm-mesh] {name} (g) {cell} rank {r['rank']}: {c['arch']} "
+                f"{c['layers']} layers bf16, B {c['batch']} x prompt "
+                f"{c['prompt']}, gen {c['gen']}{c['cut']}: weights cut at "
+                f"the draw in {c['draw_s']:.1f} s; serve: prefill "
+                f"{c['prefill_ms']:.2f} ms, decode p50 "
+                f"{statistics.median(c['decode_ms']):.3f} ms; by hand: "
+                f"prefill {c['prefill_host_ms']:.2f} ms (collectives "
+                f"{c['prefill_coll_ms']:.2f}), decode step ms "
+                f"{[round(v, 3) for v in steps]}, p50 {p50:.3f}, p99 (the "
+                f"max below 100 steps) {p99:.3f}, "
+                f"{c['batch'] * len(steps) / sum(steps) * 1e3:.0f} tok/s; "
+                f"collectives {coll:.3f} ms a step (p50, "
+                f"{coll / p50:.1%}); {c['launches']} launches a step; "
+                f"{len(c['calls'])} collective calls, "
+                f"{sum(x[2] for x in c['calls'])} B a step; peak "
+                f"{_fmt(c['peak_gib'])} GiB (reserved "
+                f"{_fmt(c['reserved_gib'])}); caches "
+                f"{c['cache_bytes'] / 2**20:.2f} MiB a rank, one device's "
+                f"{c['one_device_cache_bytes'] / 2**20:.2f} MiB (sequence "
+                f"over {c['seq_axes']}, batch over {c['batch_axes']}); "
+                f"tokens equal twice {c['same']}")
 
 
 def nvidia_smi_line() -> str:

@@ -24,7 +24,10 @@ process group.
 * :func:`all_gather_dim` / :func:`reduce_scatter_dim` — the LM mesh
   tier's pair along a tensor dimension (FSDP's weight gather and its
   gradient's reduce-scatter), and :func:`block` — a rank's block of a
-  dimension.
+  dimension;
+* :class:`count_collectives` — while open, a record of every call of
+  the four collectives above (its kind, axis, result bytes, and whether
+  its group spans more than one host), for the dry run's counts.
 
 Staging: a gloo group takes host tensors, so every collective over a
 gloo group copies a card tensor to the host, runs there and copies the
@@ -176,6 +179,55 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
                "min": dist.ReduceOp.MIN}
 
 
+# the open count_collectives contexts (empty: the wrappers record nothing)
+_COUNTERS: List["count_collectives"] = []
+# cards a host: a collective's group crosses hosts when its global ranks
+# do not all lie in one block of this many
+HOST_RANKS = 8
+
+
+class count_collectives:
+    """Context manager: every call of :func:`all_reduce`,
+    :func:`all_gather`, :func:`all_gather_dim` and
+    :func:`reduce_scatter_dim` while it is open, one entry a collective
+    (a wrapper over several axes makes one a dimension): ``calls`` holds
+    ``[kind, axis, bytes, crosses_host]`` with the reference's dry-run
+    conventions (``repro.launch.dryrun.collective_bytes_from_hlo``): the
+    kind as XLA names it ("all-reduce", "all-gather", "reduce-scatter")
+    and the bytes of the collective's result (the gathered tensor, the
+    reduced one, the scattered part).  A group crosses a host when its
+    global ranks do not all lie in one block of :data:`HOST_RANKS`.
+    Closed, it costs the wrappers one test of an empty list."""
+
+    def __init__(self):
+        self.calls: List[list] = []
+
+    def __enter__(self):
+        _COUNTERS.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _COUNTERS.remove(self)
+        return False
+
+    def summary(self) -> dict:
+        """Bytes by kind, in all and across hosts, and the call count."""
+        per_kind: dict = {}
+        for kind, _, nbytes, _ in self.calls:
+            per_kind[kind] = per_kind.get(kind, 0) + nbytes
+        return {"per_kind": per_kind, "total": sum(per_kind.values()),
+                "cross_host": sum(c[2] for c in self.calls if c[3]),
+                "num_ops": len(self.calls)}
+
+
+def _note(kind: str, axis: str, group, result: torch.Tensor) -> None:
+    ranks = dist.get_process_group_ranks(group)
+    crosses = min(ranks) // HOST_RANKS != max(ranks) // HOST_RANKS
+    for c in _COUNTERS:
+        c.calls.append([kind, axis, result.numel() * result.element_size(),
+                        crosses])
+
+
 def _wire(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` as the group's backend takes it: on the host for gloo, as
     is for nccl; booleans as uint8.  Always a fresh contiguous tensor."""
@@ -197,6 +249,8 @@ def all_reduce(t: torch.Tensor, mesh, axes: Axes, op: str = "sum"
         group = mesh.get_group(a)
         w = _wire(out, group)
         dist.all_reduce(w, op=_REDUCE_OPS[op], group=group)
+        if _COUNTERS:
+            _note("all-reduce", a, group, w)
         out = w.to(t.device, dtype=t.dtype)
     return out if out is not t else t.clone()
 
@@ -213,6 +267,8 @@ def all_gather(t: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
                                      range(dist.get_world_size(group))]
         dist.all_gather(parts, w, group=group)
         out = torch.cat(parts).to(t.device, dtype=t.dtype)
+        if _COUNTERS:
+            _note("all-gather", a, group, out)
     return out if out is not t else t.clone()
 
 
@@ -241,6 +297,8 @@ def all_gather_dim(t: torch.Tensor, mesh, axes: Axes, dim: int
         full = torch.empty((n * w.shape[0],) + tuple(w.shape[1:]),
                            dtype=w.dtype, device=w.device)
         _GATHER_INTO(full, w, group=group)
+        if _COUNTERS:
+            _note("all-gather", a, group, full)
         out = full.to(t.device, dtype=t.dtype).movedim(0, dim)
     return out.contiguous() if out is not t else t.clone()
 
@@ -262,5 +320,7 @@ def reduce_scatter_dim(t: torch.Tensor, mesh, axes: Axes, dim: int
         part = torch.empty((w.shape[0] // n,) + tuple(w.shape[1:]),
                            dtype=w.dtype, device=w.device)
         _SCATTER_FROM(part, w, group=group)
+        if _COUNTERS:
+            _note("reduce-scatter", a, group, part)
         out = part.to(t.device, dtype=t.dtype).movedim(0, dim)
     return out.contiguous() if out is not t else t.clone()

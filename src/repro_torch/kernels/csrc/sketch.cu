@@ -86,7 +86,13 @@
 // for the dense-vector sketch (tensor_sketch_estimate), whose thread j
 // writes out[j] of the caller's slice.  R = 8 and R = 16 (every config)
 // are compiled with the values in registers; any other R up to
-// kMaxEstimateRows keeps each thread's column in shared memory.
+// kMaxEstimateRows keeps each thread's column in shared memory.  Above
+// that (the reference takes any R) a warp serves a query: its lanes
+// gather the R signed values into a row of a scratch the wrapper
+// allocates (one row a resident warp, the queries taken in a
+// grid-stride loop), then each lane ranks its rows against all R (the
+// same stable rank, the reads broadcast), and the two lanes that hold
+// ranks (R-1)/2 and R/2 hand them to lane 0 by shuffle.
 // Bound: memory.  16 bytes of keys read (explicit keys only) and 4 bytes
 // of output written a query, plus the table cells the queries touch, 4
 // bytes each, where the call finds them outside L2.  Beside that bound
@@ -105,6 +111,10 @@ constexpr int kThreads = 256;
 constexpr int kEstimateThreads = 128;
 constexpr int kGeneralThreads = 64;
 constexpr int kMaxEstimateRows = 128;
+// R > kMaxEstimateRows: warps a block, and blocks at most (the scratch
+// the wrapper allocates is kWideWarps * kWideBlocks rows of R floats).
+constexpr int kWideWarps = 8;
+constexpr int kWideBlocks = 1024;
 
 struct MulShift {
   uint64_t a1, a2, b;
@@ -290,6 +300,55 @@ sketch_estimate_general_kernel(const float* __restrict__ table,
   out[j] = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
 }
 
+// R > kMaxEstimateRows: a warp a query (see the note at the top).  The
+// parameters are read from the limb arrays directly (R triples may not
+// fit in shared memory); scratch holds gridDim.x * kWideWarps rows of R.
+__global__ void __launch_bounds__(kWideWarps * 32)
+sketch_estimate_wide_kernel(const float* __restrict__ table,
+                            const long long* __restrict__ key_hi,
+                            const long long* __restrict__ key_lo,
+                            ParamLimbs params, float* __restrict__ out,
+                            float* __restrict__ scratch, long long n,
+                            long long start, int rows, int log2_cols) {
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      static_cast<long long>(blockIdx.x) * kWideWarps + (threadIdx.x >> 5);
+  const long long warps = static_cast<long long>(gridDim.x) * kWideWarps;
+  float* v = scratch + warp * rows;
+  for (long long j = warp; j < n; j += warps) {
+    const uint64_t key = query_key(key_hi, key_lo, start, j);
+    for (int r = lane; r < rows; r += 32) {
+      const MulShift p{join(params.a1_hi, params.a1_lo, r),
+                       join(params.a2_hi, params.a2_lo, r),
+                       join(params.b_hi, params.b_lo, r)};
+      v[r] = signed_cell(table, p, key, r, log2_cols);
+    }
+    __syncwarp();
+    float lo = 0.0f, hi = 0.0f;
+    bool has_lo = false, has_hi = false;
+    for (int i = lane; i < rows; i += 32) {
+      const float vi = v[i];
+      int rank = 0;
+      for (int k = 0; k < i; ++k) rank += !before(vi, v[k]);
+      for (int k = i + 1; k < rows; ++k) rank += before(v[k], vi);
+      if (rank == (rows - 1) / 2) {
+        lo = vi;
+        has_lo = true;
+      }
+      if (rank == rows / 2) {
+        hi = vi;
+        has_hi = true;
+      }
+    }
+    const int src_lo = __ffs(__ballot_sync(0xFFFFFFFFu, has_lo)) - 1;
+    const int src_hi = __ffs(__ballot_sync(0xFFFFFFFFu, has_hi)) - 1;
+    lo = __shfl_sync(0xFFFFFFFFu, lo, src_lo);
+    hi = __shfl_sync(0xFFFFFFFFu, hi, src_hi);
+    if (lane == 0) out[j] = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
+    __syncwarp();              // the row is rewritten for the next query
+  }
+}
+
 unsigned int blocks_for(long long n, int threads = kThreads) {
   return static_cast<unsigned int>((n + threads - 1) / threads);
 }
@@ -364,15 +423,17 @@ extern "C" int sketch_update_f32(const void* key_hi, const void* key_lo,
 // table (rows, 2^log2_cols) f32, the six (rows,) int64 limb arrays of the
 // hash params; out (n,) f32 gets the estimate of query j: key (key_hi[j],
 // key_lo[j]) (int64 holding uint32), or (0, start + j) when key_hi and
-// key_lo are null.  rows in [1, kMaxEstimateRows].  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for another R.
+// key_lo are null.  rows >= 1; above kMaxEstimateRows, scratch holds
+// sketch_estimate_scratch_rows(n) rows of R floats (unused otherwise,
+// may be null).  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for R < 1 or a missing scratch.
 extern "C" int sketch_estimate_median_f32(
     const void* table, const void* key_hi, const void* key_lo,
     const void* a1_hi, const void* a1_lo, const void* a2_hi,
     const void* a2_lo, const void* b_hi, const void* b_lo, void* out,
-    long long n, long long start, long long rows, long long log2_cols,
-    void* stream) {
-  if (rows < 1 || rows > kMaxEstimateRows) {
+    void* scratch, long long n, long long start, long long rows,
+    long long log2_cols, void* stream) {
+  if (rows < 1 || (rows > kMaxEstimateRows && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return 0;
@@ -383,6 +444,16 @@ extern "C" int sketch_estimate_median_f32(
   float* o = static_cast<float*>(out);
   const int l = static_cast<int>(log2_cols);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows > kMaxEstimateRows) {
+    const long long blocks = (n + kWideWarps - 1) / kWideWarps;
+    sketch_estimate_wide_kernel<<<static_cast<unsigned int>(
+                                      blocks < kWideBlocks ? blocks
+                                                           : kWideBlocks),
+                                  kWideWarps * 32, 0, s>>>(
+        t, hi, lo, p, o, static_cast<float*>(scratch), n, start,
+        static_cast<int>(rows), l);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (rows == 8) {
     launch_estimate<8>(t, hi, lo, p, o, n, start, l, s);
   } else if (rows == 16) {
@@ -395,4 +466,11 @@ extern "C" int sketch_estimate_median_f32(
         t, hi, lo, p, o, n, start, static_cast<int>(rows), l);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Rows of R floats the scratch of an R > kMaxEstimateRows call of n
+// queries needs: one a resident warp.
+extern "C" long long sketch_estimate_scratch_rows(long long n) {
+  const long long blocks = (n + kWideWarps - 1) / kWideWarps;
+  return (blocks < kWideBlocks ? blocks : kWideBlocks) * kWideWarps;
 }

@@ -11,8 +11,9 @@ reference's ``repro.kernels.sketch_estimate`` behind
   (uint32 limbs in int64), :func:`estimate_range_cuda` for the keys
   (0, start + j), j < n, written into the caller's (n,) slice: one
   thread a query hashes, gathers its R cells and takes the median in
-  registers (the source note says what bounds it).  CUDA tensors only;
-  R in [1, :data:`MAX_ROWS`], other R raise ``ValueError``.
+  registers (the source note says what bounds it); above
+  :data:`MAX_ROWS` rows a warp serves a query, its R values in a scratch
+  this wrapper allocates.  CUDA tensors only; any R >= 1.
 * :func:`estimate_torch` and :func:`estimate_range_torch` are the plain
   versions, the chain the kernel replaced: ``hashing.hashes`` →
   :func:`sketch_estimate_torch` (the (R, Q) signed gather,
@@ -36,11 +37,12 @@ from repro_torch.core.hashing import MulShiftParams
 from repro_torch.kernels import _build
 from repro_torch.kernels.hash_points import check_log2_cols, check_params
 
-# (table, key_hi, key_lo, six param limbs, out, n, start, rows, log2_cols,
-#  stream)
-_SIG = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+# (table, key_hi, key_lo, six param limbs, out, scratch, n, start, rows,
+#  log2_cols, stream)
+_SIG = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
 # the kernel's kMaxEstimateRows: R other than 8 and 16 keeps a block's
-# values in shared memory, which holds 64 columns of up to 128 rows
+# values in shared memory, which holds 64 columns of up to 128 rows; a
+# larger R takes the warp-a-query path and its scratch
 MAX_ROWS = 128
 # implicit keys are (0, start + j) with a uint32 low limb
 _KEY_SPACE = 1 << 32
@@ -88,9 +90,6 @@ def _check_table(op: str, table: torch.Tensor, params: MulShiftParams,
     if len({t.device for t in ts}) != 1:
         raise ValueError(f"{op}: tensors on different devices")
     check_params(op, params, table.device)
-    if params.rows > MAX_ROWS:
-        raise ValueError(f"{op}: the kernel takes R <= {MAX_ROWS}, got "
-                         f"{params.rows}")
     if table.dtype != torch.float32:
         raise ValueError(f"{op}: table must be float32, got {table.dtype}")
     if table.dim() != 2 or table.shape[0] != params.rows:
@@ -104,11 +103,20 @@ def _check_table(op: str, table: torch.Tensor, params: MulShiftParams,
 
 
 def _launch(table, params, key_hi, key_lo, out, start, log2_cols):
+    n = out.shape[0]
+    scratch = None
+    if params.rows > MAX_ROWS:        # a row of R floats a resident warp
+        rows = _build.entry("sketch", "sketch_estimate_scratch_rows",
+                            [ctypes.c_longlong],
+                            restype=ctypes.c_longlong)(n)
+        scratch = torch.empty((rows, params.rows), dtype=torch.float32,
+                              device=table.device)
     fn = _build.entry("sketch", "sketch_estimate_median_f32", _SIG)
     _build.launch("sketch_estimate_table", fn, table.device,
                   table.data_ptr(), key_hi, key_lo,
                   *(p.data_ptr() for p in params), out.data_ptr(),
-                  out.shape[0], start, params.rows, log2_cols)
+                  None if scratch is None else scratch.data_ptr(),
+                  n, start, params.rows, log2_cols)
 
 
 def estimate_cuda(table: torch.Tensor, params: MulShiftParams,

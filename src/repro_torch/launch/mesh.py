@@ -8,13 +8,17 @@ Axis semantics, as in the reference:
 
 A mesh is a ``torch.distributed`` ``DeviceMesh`` with these dimension
 names (``core.mesh``): every rank runs the same program in its own
-process.  Nothing here starts a process; :func:`make_host_mesh` joins
-the default group when the caller has not.
+process.  :func:`make_host_mesh` joins the default group when the caller
+has not; :func:`spawn_ranks` is the launchers' ``--mesh`` /
+``--host-devices``: it starts one process a rank and hands each its
+device and mesh.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+import os
+import tempfile
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch.distributed as dist
 
@@ -22,6 +26,8 @@ from repro_torch.core import mesh as mesh_mod
 
 PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
                      True: ((2, 16, 16), ("pod", "data", "model"))}
+# a launcher's --mesh names its dimensions by the last len(shape) of these
+AXES = ("pod", "data", "model")
 
 
 def make_host_mesh(shape: Tuple[int, ...], axes: Sequence[str], *,
@@ -84,3 +90,65 @@ def dp_size(mesh) -> int:
 def tp_size(mesh) -> int:
     return mesh_mod.axis_size(mesh, "model") \
         if "model" in axis_names(mesh) else 1
+
+
+def parse_mesh(spec: str) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """A launcher's ``--mesh`` comma shape and its dimension names,
+    ``AXES[-len(shape):]`` as in the reference."""
+    shape = tuple(int(x) for x in spec.split(","))
+    if not 1 <= len(shape) <= len(AXES):
+        raise ValueError(f"--mesh {spec}: 1 to {len(AXES)} dimensions")
+    return shape, AXES[-len(shape):]
+
+
+def spawn_ranks(fn: Callable, spec: str, host_devices: int, device,
+                args: tuple = ()) -> None:
+    """Run ``fn(rank, device, mesh, *args)`` in one spawned process a rank
+    of the mesh ``spec`` (``--mesh``).  With ``host_devices`` the ranks
+    are that many CPU processes on gloo (it must be the mesh's size, and
+    ``device`` the CPU); otherwise each rank owns one card on nccl, and a
+    mesh larger than the visible cards raises.  The ranks meet through a
+    file in a fresh temporary directory; ``fn`` must be picklable (a
+    module-level function)."""
+    import torch
+    import torch.multiprocessing as mp
+    shape, names = parse_mesh(spec)
+    world = math.prod(shape)
+    dev = torch.device(device)
+    if host_devices:
+        if dev.type != "cpu":
+            raise ValueError("--host-devices runs CPU ranks: pass --device "
+                             "cpu")
+        if host_devices != world:
+            raise ValueError(f"--mesh {spec} has {world} ranks, "
+                             f"--host-devices {host_devices}")
+    else:
+        if dev.type != "cuda":
+            raise ValueError("a mesh off the card needs --host-devices N")
+        if torch.cuda.device_count() < world:
+            raise ValueError(f"--mesh {spec} needs {world} cards (one a "
+                             f"rank); {torch.cuda.device_count()} are "
+                             f"visible")
+    rdv = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    mp.spawn(_rank_entry, args=(fn, shape, names, host_devices,
+                                f"file://{rdv}/rendezvous", args),
+             nprocs=world)
+
+
+def _rank_entry(rank: int, fn: Callable, shape, names, host_devices: int,
+                init: str, args: tuple) -> None:
+    """One spawned rank of :func:`spawn_ranks`: its device and backend,
+    the mesh, then ``fn``; the group is torn down however ``fn`` ends."""
+    import torch
+    if host_devices:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // host_devices))
+        dev, backend = torch.device("cpu"), "gloo"
+    else:
+        torch.cuda.set_device(rank)
+        dev, backend = torch.device("cuda", rank), "nccl"
+    mesh = make_host_mesh(shape, names, rank=rank, init_method=init,
+                          backend=backend)
+    try:
+        fn(rank, dev, mesh, *args)
+    finally:
+        dist.destroy_process_group()

@@ -174,6 +174,33 @@ def batch_pspecs(batch: Mapping[str, torch.Tensor], mesh) -> Dict[str, Spec]:
     return {k: (dp,) + (None,) * (v.ndim - 1) for k, v in batch.items()}
 
 
+def _decode_axes(mesh, global_batch: int, pol: ShardingPolicy
+                 ) -> Tuple[Axis, Axis]:
+    """(the batch's entry, the cache sequence's entry) of a decode state:
+    the batch over the data axes when it fills them, the sequence over
+    "model" then, and over every axis for a batch that does not (one
+    sequence, the only way a 512k-slot cache fits)."""
+    from repro_torch.launch.mesh import dp_axes, dp_size
+    dp = dp_axes(mesh)
+    shardable = global_batch >= dp_size(mesh) and global_batch > 1
+    bdim = _axis(dp) if shardable else None
+    seq = pol.tp_axis if shardable else _axis(tuple(dp) + (pol.tp_axis,))
+    return bdim, seq if pol.seq_shard_decode else None
+
+
+def _decode_leaf_spec(name: str, ndim: int, bdim: Axis, seq: Axis,
+                      pol: ShardingPolicy) -> Spec:
+    if name == "k" or name == "v":
+        return (bdim, seq, None, None)
+    if name == "ssm":
+        return (bdim, pol.tp_axis, None, None)
+    if name == "conv_x":
+        return (bdim, None, pol.tp_axis)
+    if name == "conv_bc":
+        return (bdim, None, None)
+    return (None,) * ndim
+
+
 def decode_state_pspecs(state: Mapping[str, Any], mesh, global_batch: int,
                         pol: ShardingPolicy = ShardingPolicy()):
     """Layouts of a decode state (``models.model.init_decode_state``): KV
@@ -181,29 +208,85 @@ def decode_state_pspecs(state: Mapping[str, Any], mesh, global_batch: int,
     (B, W-1, Ch); ``pos`` a scalar.  The batch goes over the data axes
     when it fills them; the cache's sequence over "model" then, and over
     every axis for a batch of one."""
-    from repro_torch.launch.mesh import dp_axes, dp_size
-    dp = dp_axes(mesh)
-    shardable = global_batch >= dp_size(mesh) and global_batch > 1
-    bdim = _axis(dp) if shardable else None
-    seq = pol.tp_axis if shardable else _axis(tuple(dp) + (pol.tp_axis,))
-
-    def one(name: str, t) -> Spec:
-        if name == "k" or name == "v":
-            return (bdim, seq if pol.seq_shard_decode else None, None, None)
-        if name == "ssm":
-            return (bdim, pol.tp_axis, None, None)
-        if name == "conv_x":
-            return (bdim, None, pol.tp_axis)
-        if name == "conv_bc":
-            return (bdim, None, None)
-        return (None,) * t.ndim
-
+    bdim, seq = _decode_axes(mesh, global_batch, pol)
     out = {"pos": ()}
     for group in ("layers", "cross"):
         if group in state:
-            out[group] = [{k: one(k, t) for k, t in c.items()}
-                          for c in state[group]]
+            out[group] = [{k: _decode_leaf_spec(k, t.ndim, bdim, seq, pol)
+                           for k, t in c.items()} for c in state[group]]
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeLayout:
+    """A decode state's cut on a mesh (:func:`decode_layout`): the batch
+    split over ``batch_axes`` (none: every rank holds every row), the
+    caches' sequence over ``seq_axes`` (the axes of more than one rank;
+    none: whole on every rank).  One device's cache of ``cache_len``
+    slots is rounded up to ``slots · k`` (k ranks on ``seq_axes``); this
+    rank owns slots [``slot0``, ``slot0 + slots``).  Padded slots lie past
+    every position and are masked as every unwritten slot is."""
+    mesh: Any
+    batch_axes: Tuple[str, ...]
+    seq_axes: Tuple[str, ...]
+    specs: Dict[str, Spec]          # each cache leaf's layout by its name
+    cache_len: int
+    slots: int
+    slot0: int
+
+    def local_shape(self, name: str, shape: Sequence[int]
+                    ) -> Tuple[int, ...]:
+        """This rank's block of one device's leaf ``name`` of ``shape``."""
+        shape = list(shape)
+        if name in ("k", "v"):
+            shape[1] = self.slots * _size(self.mesh, self.seq_axes)
+        return local_shape(shape, self.specs[name], self.mesh)
+
+    def kv_positions(self, device) -> torch.Tensor:
+        """The global slot index of each of this rank's cache slots."""
+        return torch.arange(self.slot0, self.slot0 + self.slots,
+                            device=device)
+
+    @property
+    def seq_group(self):
+        """(mesh, axes) the attention's softmax is combined over, or None
+        when the sequence is not split."""
+        return (self.mesh, self.seq_axes) if self.seq_axes else None
+
+    def rows(self, batch: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a (B, ...) tensor every rank holds whole."""
+        if not self.batch_axes:
+            return batch
+        return mesh_mod.block(batch, self.mesh, self.batch_axes, 0)
+
+
+def decode_layout(mesh, global_batch: int, cache_len: int,
+                  pol: Optional[ShardingPolicy] = None) -> DecodeLayout:
+    """How a decode state of ``global_batch`` rows and ``cache_len`` slots
+    is cut on ``mesh`` under ``pol`` (the layouts of
+    :func:`decode_state_pspecs`, with the axes the mesh lacks or holds
+    once dropped)."""
+    pol = pol or ShardingPolicy()
+    names = set(mesh.mesh_dim_names or ())
+
+    def keep(a: Axis) -> Tuple[str, ...]:
+        return tuple(x for x in mesh_mod.as_axes(a) if x in names
+                     and mesh_mod.axis_size(mesh, x) > 1) if a else ()
+    bdim, seq = _decode_axes(mesh, global_batch, pol)
+    baxes, saxes = keep(bdim), keep(seq)
+    specs = {n: tuple(_axis(keep(a)) for a in
+                      _decode_leaf_spec(n, nd, bdim, seq, pol))
+             for n, nd in (("k", 4), ("v", 4), ("ssm", 4), ("conv_x", 3),
+                           ("conv_bc", 3))}
+    k = _size(mesh, saxes)
+    slots = -(-cache_len // k)
+    slot0 = mesh_mod.linear_index(mesh, saxes) * slots if saxes else 0
+    if global_batch % _size(mesh, baxes):
+        raise ValueError(f"a batch of {global_batch} does not split over "
+                         f"{baxes}")
+    return DecodeLayout(mesh=mesh, batch_axes=baxes, seq_axes=saxes,
+                        specs=specs, cache_len=cache_len, slots=slots,
+                        slot0=slot0)
 
 
 # ------------------------------------------------ blocks of a full tensor

@@ -22,37 +22,18 @@ card on nccl, and a mesh larger than the visible cards raises.
 from __future__ import annotations
 
 import argparse
-import math
-import os
 import tempfile
 
-AXES = ("pod", "data", "model")
 
-
-def _rank_main(rank: int, args, shape, names, init: str) -> None:
-    """One rank of a ``--mesh`` run (a spawned process)."""
-    import torch
-    import torch.distributed as dist
+def _rank_main(rank: int, dev, mesh, args) -> None:
+    """One rank of a ``--mesh`` run (``launch.mesh.spawn_ranks``)."""
     from repro_torch.launch import sharding as sh
-    from repro_torch.launch.mesh import make_host_mesh
-
-    if args.host_devices:
-        torch.set_num_threads(max(1, (os.cpu_count() or 1)
-                                  // args.host_devices))
-        dev, backend = "cpu", "gloo"
-    else:
-        torch.cuda.set_device(rank)
-        dev, backend = f"cuda:{rank}", "nccl"
-    mesh = make_host_mesh(shape, names, rank=rank, init_method=init,
-                          backend=backend)
-    try:
-        if rank == 0:
-            print(f"[mesh] {dict(zip(names, shape))} act_mode="
-                  f"{args.act_mode} on {backend}")
-        _train(args, dev, mesh, sh.ShardingPolicy(act_mode=args.act_mode),
-               verbose=rank == 0)
-    finally:
-        dist.destroy_process_group()
+    if rank == 0:
+        names = mesh.mesh_dim_names
+        print(f"[mesh] {dict(zip(names, mesh.shape))} act_mode="
+              f"{args.act_mode} on {'gloo' if dev.type == 'cpu' else 'nccl'}")
+    _train(args, dev, mesh, sh.ShardingPolicy(act_mode=args.act_mode),
+           verbose=rank == 0)
 
 
 def _train(args, dev, mesh=None, policy=None, verbose=True) -> None:
@@ -127,30 +108,8 @@ def main(argv=None) -> None:
             raise ValueError("--host-devices needs --mesh")
         _train(args, dev)
         return
-    import torch
-    import torch.multiprocessing as mp
-    shape = tuple(int(x) for x in args.mesh.split(","))
-    if not 1 <= len(shape) <= len(AXES):
-        raise ValueError(f"--mesh {args.mesh}: 1 to {len(AXES)} dimensions")
-    names = AXES[-len(shape):]
-    world = math.prod(shape)
-    if args.host_devices:
-        if dev.type != "cpu":
-            raise ValueError("--host-devices runs CPU ranks: pass --device "
-                             "cpu")
-        if args.host_devices != world:
-            raise ValueError(f"--mesh {args.mesh} has {world} ranks, "
-                             f"--host-devices {args.host_devices}")
-    else:
-        if dev.type != "cuda":
-            raise ValueError("a mesh off the card needs --host-devices N")
-        if torch.cuda.device_count() < world:
-            raise ValueError(f"--mesh {args.mesh} needs {world} cards (one "
-                             f"a rank); {torch.cuda.device_count()} are "
-                             f"visible")
-    rdv = tempfile.mkdtemp(prefix="repro_torch_mesh_")
-    mp.spawn(_rank_main, args=(args, shape, names,
-                               f"file://{rdv}/rendezvous"), nprocs=world)
+    from repro_torch.launch.mesh import spawn_ranks
+    spawn_ranks(_rank_main, args.mesh, args.host_devices, dev, (args,))
 
 
 if __name__ == "__main__":

@@ -16,6 +16,9 @@ attention and the MLP are tensor-parallel over "model": ``wq``,
 ``w_gate`` and ``w_up`` column-parallel, ``wo`` and ``w_down``
 row-parallel and summed over "model"; ``wk``/``wv`` replicated, each rank
 taking the K/V heads its query heads read.  Off a mesh ``par`` is None.
+A decode step on a mesh may split the cache's sequence over ranks:
+:func:`attention` then combines the softmax over them and
+:func:`update_cache` writes a rank's own slots.
 """
 from __future__ import annotations
 
@@ -88,20 +91,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 def _scores_softmax_ctx(q5: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
-                        mask: torch.Tensor, v_dtype: torch.dtype
-                        ) -> torch.Tensor:
+                        mask: torch.Tensor, v_dtype: torch.dtype,
+                        seq_group=None) -> torch.Tensor:
     """q5 (B, Sq, KVH, G, hd); kf, vf (B, T, KVH, hd) f32; mask (1, Sq, T)
-    -> f32 context like q5."""
+    -> f32 context like q5.  With ``seq_group`` = (mesh, axes) the T slots
+    are this rank's share of the sequence: the row max, then the row sum
+    of exp(s - max), then the context of the probabilities rounded to V's
+    dtype are each summed (the max taken) over ``axes``, so the
+    probabilities round as one device's softmax rounds them."""
     scale = float(1.0 / math.sqrt(q5.shape[-1]))
     logits = torch.einsum("bqkgd,btkd->bkgqt", q5.float(), kf) * scale
     logits = torch.where(mask[:, None, None, :, :], logits, MASKED)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bkgqt,btkd->bqkgd", probs.to(v_dtype).float(), vf)
+    if seq_group is None:
+        probs = torch.softmax(logits, dim=-1)
+        return torch.einsum("bkgqt,btkd->bqkgd", probs.to(v_dtype).float(),
+                            vf)
+    from repro_torch.core import mesh as mesh_mod
+    mesh, axes = seq_group
+    m = mesh_mod.all_reduce(logits.amax(dim=-1, keepdim=True), mesh, axes,
+                            op="max")
+    e = torch.exp(logits - m)
+    denom = mesh_mod.all_reduce(e.sum(dim=-1, keepdim=True), mesh, axes)
+    part = torch.einsum("bkgqt,btkd->bqkgd", (e / denom).to(v_dtype).float(),
+                        vf)
+    return mesh_mod.all_reduce(part, mesh, axes)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               q_positions: torch.Tensor, kv_valid_len: Optional[int], *,
-              causal: bool, q_chunk: int = 1024) -> torch.Tensor:
+              causal: bool, q_chunk: int = 1024,
+              kv_positions: Optional[torch.Tensor] = None,
+              seq_group=None) -> torch.Tensor:
     """Chunked GQA attention.
 
     q (B, Sq, H, hd); k, v (B, T, KVH, hd); q_positions (Sq,) absolute
@@ -109,6 +129,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_valid_len: count of valid cache slots (None = all T).  Above
     ``q_chunk`` queries, Sq must be a multiple of it.  Returns
     (B, Sq, H, hd) in q's dtype.
+
+    On a mesh whose ranks split the cache's sequence, ``kv_positions``
+    (T,) holds the global slot index of each local slot and
+    ``seq_group`` = (mesh, axes) the ranks the softmax is combined over
+    (:func:`_scores_softmax_ctx`); every rank returns the whole context.
     """
     b, sq, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
@@ -117,7 +142,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q_chunk}")
     q5 = q.reshape(b, sq, kvh, h // kvh, hd)
     kf, vf = k.float(), v.float()
-    kv_pos = torch.arange(t, device=q.device)
+    kv_pos = torch.arange(t, device=q.device) if kv_positions is None \
+        else kv_positions
 
     def mask_for(qpos):
         m = torch.ones((qpos.shape[0], t), dtype=torch.bool, device=q.device)
@@ -130,7 +156,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     step = min(sq, q_chunk)
     ctx = torch.cat([
         _scores_softmax_ctx(q5[:, i:i + step], kf, vf,
-                            mask_for(q_positions[i:i + step]), v.dtype)
+                            mask_for(q_positions[i:i + step]), v.dtype,
+                            seq_group)
         for i in range(0, sq, step)], dim=1)
     return ctx.to(q.dtype).reshape(b, sq, h, hd)
 
@@ -248,15 +275,22 @@ class Mlp(nn.Module):
         return out if self.par is None else self.par.from_tp(out)
 
 
-def update_cache(cache: torch.Tensor, new: torch.Tensor, pos: int
+def update_cache(cache: torch.Tensor, new: torch.Tensor, pos: int,
+                 slot0: int = 0, limit: Optional[int] = None
                  ) -> torch.Tensor:
     """Write (B, Snew, KVH, hd) into cache (B, T, KVH, hd) at time ``pos``,
     in place.  Where the reference's ``dynamic_update_slice`` would clamp
     the start so the update fits (and overwrite earlier slots), this
-    raises."""
+    raises.  On a rank that holds slots [``slot0``, ``slot0 + T``) of a
+    cache of ``limit`` slots (``launch.sharding.DecodeLayout``) only the
+    part of the span that lands there is written."""
     s_new, t = new.shape[1], cache.shape[1]
-    if pos < 0 or pos + s_new > t:
-        raise ValueError(f"cache of {t} slots cannot take {s_new} at "
+    limit = t if limit is None else limit
+    if pos < 0 or pos + s_new > limit:
+        raise ValueError(f"cache of {limit} slots cannot take {s_new} at "
                          f"position {pos}")
-    cache[:, pos:pos + s_new] = new.to(cache.dtype)
+    lo, hi = max(pos, slot0), min(pos + s_new, slot0 + t)
+    if lo < hi:
+        cache[:, lo - slot0:hi - slot0] = new[:, lo - pos:hi - pos].to(
+            cache.dtype)
     return cache

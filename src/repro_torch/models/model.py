@@ -28,12 +28,22 @@ boundary in the layout its policy's ``act_mode`` names; the embedding
 and the LM head are vocab-parallel over "model", the cross-entropy's
 max and log-sum-exp reduced over "model" and its sums over the data
 axes.  One body serves both: off a mesh the model's ``par`` is
-``sharding.LOCAL`` and every collective is skipped.  Serving runs on
-one device only.
+``sharding.LOCAL`` and every collective is skipped.
+
+Serving on a mesh (:func:`forward_step`) follows the same rules, one
+layer's FSDP blocks gathered at a time, and a decode state cut at its
+allocation (``init_decode_state(mesh=)``, ``sharding.DecodeLayout``):
+the batch over the data axes when it fills them, the caches' sequence
+over "model" (over every axis for a batch of one), the SSM states over
+"model" by head.  Attention gathers the queries of every head over
+"model", attends over the rank's slots, combines the softmax over the
+sequence's ranks and keeps its head block for the row-parallel output;
+the vocab-parallel head's logits are gathered over "model".
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -278,9 +288,12 @@ def param_stacks(cfg: ModelConfig, model: LM) -> List[Tuple[str, ...]]:
 
 # ========================================================== block application
 def _apply_ff(cfg: ModelConfig, blk: Block, x: torch.Tensor,
-              aux: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-    """The feed-forward half of a layer; with ``aux`` (training) the MoE's
-    load-balance and router z losses are added into it."""
+              aux: Optional[Dict[str, torch.Tensor]] = None,
+              moe_par: Optional[sh.Par] = None) -> torch.Tensor:
+    """The feed-forward half of a layer; with ``aux`` the MoE's
+    load-balance and router z losses and its dropped share are added
+    into it.  ``moe_par``: the MoE's mesh context when the batch is not
+    split as the layer's ``par`` says (a decode step's)."""
     if blk.norm2 is None:
         return x
     h = L.rms_norm(x, blk.norm2, cfg.norm_eps)
@@ -288,9 +301,9 @@ def _apply_ff(cfg: ModelConfig, blk: Block, x: torch.Tensor,
     if blk.moe is not None:
         delta, routing = moe_mod.moe_apply(
             blk.moe, h, top_k=cfg.moe_top_k,
-            capacity_factor=cfg.capacity_factor)
+            capacity_factor=cfg.capacity_factor, par=moe_par)
         if aux is not None:
-            a = moe_mod.moe_aux(routing, blk.moe.par)
+            a = moe_mod.moe_aux(routing, moe_par or blk.moe.par)
             aux["lb_loss"] = aux["lb_loss"] + a.load_balance_loss
             aux["z_loss"] = aux["z_loss"] + a.z_loss
             aux["dropped"] = aux["dropped"] + a.dropped_frac.detach()
@@ -301,17 +314,43 @@ def _apply_ff(cfg: ModelConfig, blk: Block, x: torch.Tensor,
 
 
 def _apply_cross(cfg: ModelConfig, cr: CrossAttention, x: torch.Tensor,
-                 enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+                 enc_k: torch.Tensor, enc_v: torch.Tensor,
+                 lay: Optional[sh.DecodeLayout] = None) -> torch.Tensor:
     """Cross-attention against the cached encoder K/V: every slot of the
     cache, the zero tail past the encoder's length included (the
-    reference attends there too, with ``kv_valid_len=None``)."""
+    reference attends there too, with ``kv_valid_len=None``); on a mesh
+    (``lay``) every slot of one device's cache, not the padding past
+    it."""
     h = L.rms_norm(x, cr.norm, cfg.norm_eps)
     q = cr.attn.q_proj(h)
-    ctx = L.attention(q, cr.attn.local_kv(enc_k), cr.attn.local_kv(enc_v),
-                      torch.zeros(x.shape[1], dtype=torch.long,
-                                  device=x.device), None,
-                      causal=False, q_chunk=1024)
+    zeros = torch.zeros(x.shape[1], dtype=torch.long, device=x.device)
+    if lay is None:
+        ctx = L.attention(q, cr.attn.local_kv(enc_k),
+                          cr.attn.local_kv(enc_v), zeros, None,
+                          causal=False, q_chunk=1024)
+    else:
+        ctx = _attend_split(cr.attn, q, enc_k, enc_v, zeros, lay.cache_len,
+                            False, lay)
     return x + cr.attn.out_proj(ctx)
+
+
+def _attend_split(attn: L.Attention, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, q_positions: torch.Tensor, valid: int,
+                  causal: bool, lay: sh.DecodeLayout) -> torch.Tensor:
+    """Attention of this rank's query heads ``q`` against this rank's
+    cache slots (``lay``): the queries of every head gathered over
+    "model", the softmax combined over the sequence's ranks, and this
+    rank's head block of the context kept."""
+    par = attn.par
+    heads = q.shape[2]
+    if par.tp_size > 1:
+        q = mesh_mod.all_gather_dim(q, par.mesh, par.tp, 2)
+    ctx = L.attention(q, k, v, q_positions, valid, causal=causal,
+                      q_chunk=1024, kv_positions=lay.kv_positions(q.device),
+                      seq_group=lay.seq_group)
+    if par.tp_size > 1:
+        ctx = ctx.narrow(2, par.tp_rank * heads, heads)
+    return ctx
 
 
 def _cross_kv(cr: CrossAttention, enc_out: torch.Tensor
@@ -493,7 +532,8 @@ def forward_train(cfg: ModelConfig, model: LM, batch: Dict[str, Any],
     logz = m + torch.log(se)
     lab = batch["labels"] - v0
     mine = (lab >= 0) & (lab < rows)
-    gold = torch.gather(logits, -1, lab.clamp(0, rows - 1)[..., None])[..., 0]
+    gold = torch.gather(logits, -1,
+                        lab.clamp(0, rows - 1).long()[..., None])[..., 0]
     gold = par.from_tp(torch.where(mine, gold, 0.0))
     mask = batch["loss_mask"].float()
     loss = par.dp_sum(torch.sum((logz - gold) * mask)) \
@@ -516,52 +556,78 @@ def _total(cfg: ModelConfig, loss: torch.Tensor,
 
 # ================================================================= decoding
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
-                      tp: int = 1, dtype=None, device=None) -> State:
+                      tp: int = 1, dtype=None, device=None, mesh=None,
+                      policy: Optional[sh.ShardingPolicy] = None) -> State:
     """Zeroed caches, one a layer, on ``device`` (the card unless the
     caller names another): ``{"pos": 0, "layers": [...], "cross": [...]
-    (encoder-decoder only)}``."""
+    (encoder-decoder only)}``.  With a ``mesh``: this rank's blocks of a
+    decode state of ``batch`` rows (the global batch) under ``policy``,
+    each allocated at its block's size, and the cut under ``"layout"``
+    (``sharding.decode_layout``); heads are padded by the mesh's "model"
+    size."""
     device = resolve_device(device)
     dt = dtype or cfg.pdtype
+    lay = None
+    if mesh is not None:
+        from repro_torch.launch.mesh import tp_size
+        tp = max(tp, tp_size(mesh))
+        lay = sh.decode_layout(mesh, batch, cache_len, policy)
+
+    def zeros(name, shape, dtype):
+        if lay is not None:
+            shape = lay.local_shape(name, shape)
+        return torch.zeros(shape, dtype=dtype, device=device)
     kv_shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
 
     def kv():
-        return {"k": torch.zeros(kv_shape, dtype=dt, device=device),
-                "v": torch.zeros(kv_shape, dtype=dt, device=device)}
+        return {"k": zeros("k", kv_shape, dt), "v": zeros("v", kv_shape, dt)}
 
     def ssm():
         h = cfg.padded_ssm_heads(tp)
         hd = cfg.d_inner // cfg.ssm_heads
         lb = cfg.ssm_conv_width - 1
-        return {"ssm": torch.zeros((batch, h, hd, cfg.ssm_state),
-                                   dtype=torch.float32, device=device),
-                "conv_x": torch.zeros((batch, lb, h * hd), dtype=dt,
-                                      device=device),
-                "conv_bc": torch.zeros((batch, lb, 2 * cfg.ssm_state),
-                                       dtype=dt, device=device)}
+        return {"ssm": zeros("ssm", (batch, h, hd, cfg.ssm_state),
+                             torch.float32),
+                "conv_x": zeros("conv_x", (batch, lb, h * hd), dt),
+                "conv_bc": zeros("conv_bc", (batch, lb, 2 * cfg.ssm_state),
+                                 dt)}
 
     state: State = {"pos": 0, "layers": [
         kv() if cfg.is_attn_layer(i) else ssm()
         for i in range(cfg.num_layers)]}
     if cfg.encoder_layers:
         state["cross"] = [kv() for _ in range(cfg.num_layers)]
+    if lay is not None:
+        state["layout"] = lay
     return state
 
 
 def _apply_sub_step(cfg: ModelConfig, blk: Block, x: torch.Tensor,
                     cache: Dict[str, torch.Tensor], pos: int,
-                    rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+                    rope: Tuple[torch.Tensor, torch.Tensor],
+                    lay: Optional[sh.DecodeLayout] = None,
+                    moe_par: Optional[sh.Par] = None,
+                    aux: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> torch.Tensor:
     """One layer on (B, S_new, D) with its cache read and written in place
-    (S_new = 1 decode, or the whole prompt during prefill)."""
+    (S_new = 1 decode, or the whole prompt during prefill); on a mesh
+    (``lay``) the cache holds this rank's slots."""
     h = L.rms_norm(x, blk.norm1, cfg.norm_eps)
     s_new = x.shape[1]
     if blk.attn is not None:
         q, k, v = blk.attn.qkv_proj(h)
         q, k = L.rotate(q, *rope), L.rotate(k, *rope)
-        k_cache = L.update_cache(cache["k"], k, pos)
-        v_cache = L.update_cache(cache["v"], v, pos)
+        slot0, limit = (0, None) if lay is None else (lay.slot0,
+                                                      lay.cache_len)
+        k_cache = L.update_cache(cache["k"], k, pos, slot0, limit)
+        v_cache = L.update_cache(cache["v"], v, pos, slot0, limit)
         positions = torch.arange(pos, pos + s_new, device=x.device)
-        ctx = L.attention(q, k_cache, v_cache, positions, pos + s_new,
-                          causal=True, q_chunk=1024)
+        if lay is None:
+            ctx = L.attention(q, k_cache, v_cache, positions, pos + s_new,
+                              causal=True, q_chunk=1024)
+        else:
+            ctx = _attend_split(blk.attn, q, k_cache, v_cache, positions,
+                                pos + s_new, True, lay)
         x = x + blk.attn.out_proj(ctx)
     else:
         st = ssm_mod.SsmState(ssm=cache["ssm"], conv_x=cache["conv_x"],
@@ -573,38 +639,63 @@ def _apply_sub_step(cfg: ModelConfig, blk: Block, x: torch.Tensor,
                 blk.ssm, h, chunk=min(cfg.ssm_chunk, s_new), state=st)
         x = x + out
         cache.update(st._asdict())
-    return _apply_ff(cfg, blk, x)
+    return _apply_ff(cfg, blk, x, aux, moe_par)
+
+
+def _decode_moe_par(par: sh.Par, lay: Optional[sh.DecodeLayout]
+                    ) -> Optional[sh.Par]:
+    """The MoE's mesh context in a decode step: its batch is split over
+    the layout's batch axes, which are the data axes only when the batch
+    fills them."""
+    if lay is None or tuple(lay.batch_axes) == tuple(par.dp):
+        return None
+    return dataclasses.replace(par, dp=tuple(lay.batch_axes))
 
 
 def forward_step(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
-                 state: State, prefix_embeds: Optional[torch.Tensor] = None
+                 state: State, prefix_embeds: Optional[torch.Tensor] = None,
+                 aux: Optional[Dict[str, torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, State]:
     """Cache-carrying forward (prefill: tokens (B, S); decode: (B, 1)).
     Returns (f32 logits for the final position (B, V), the state), the
-    state's caches and position updated in place.  On one device only: a
-    sharded model raises."""
-    if getattr(model, "par", None) is not None:
-        raise NotImplementedError("serving on a mesh is not in the port yet")
+    state's caches and position updated in place.  On a mesh the model is
+    a rank's blocks (``sharding.shard_model``), the state a rank's
+    (``init_decode_state(mesh=)``), ``tokens`` and ``prefix_embeds`` the
+    rank's rows of the batch, and the logits the rank's rows over the
+    whole (padded) vocabulary.  With ``aux`` (``lb_loss``, ``z_loss``,
+    ``dropped``) the MoE layers add their aux losses and dropped shares,
+    of the global batch, into it."""
+    par = model_par(model)
+    lay = state.get("layout")
     pos = state["pos"]
-    x = model.embed[tokens].to(cfg.cdtype)
+    x = embed_rows(model, tokens).to(cfg.cdtype)
     if prefix_embeds is not None:
         pe = prefix_embeds.to(cfg.cdtype)
         if cfg.frontend == "vision":
-            pe = pe @ model.patch_proj
+            pe = sh.gather_act(par.to_tp(pe) @ model.patch_proj, par.mesh,
+                               par.tp, 2)
         x = torch.cat([pe, x], dim=1)
     s_new = x.shape[1]
     rope = L.rope_tables(torch.arange(pos, pos + s_new, device=x.device),
                          cfg.head_dim, cfg.rope_theta) \
         if cfg.num_heads else None
+    moe_par = _decode_moe_par(par, lay)
     for i, blk in enumerate(model.layers):
-        x = _apply_sub_step(cfg, blk, x, state["layers"][i], pos, rope)
-        if cfg.encoder_layers:        # cross K/V filled by fill_cross_caches
-            ck = state["cross"][i]
-            x = _apply_cross(cfg, model.cross[i], x, ck["k"], ck["v"])
+        names = [f"layers.{i}"] + ([f"cross.{i}"] if cfg.encoder_layers
+                                   else [])
+        with _gathered(model, names):
+            x = _apply_sub_step(cfg, blk, x, state["layers"][i], pos, rope,
+                                lay, moe_par, aux)
+            if cfg.encoder_layers:    # cross K/V filled by fill_cross_caches
+                ck = state["cross"][i]
+                x = _apply_cross(cfg, model.cross[i], x, ck["k"], ck["v"],
+                                 lay)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    head = model.head
-    logits = (x[:, -1, :] @ head.T).float()
-    if head.shape[0] != cfg.vocab_size:                     # mask vocab pad
+    head = sh.gather_weight(model.head, par.mesh, par.fs, 1)
+    logits = (x[:, -1, :] @ head.T).float()        # (B, V_l)
+    if par.tp_size > 1:
+        logits = mesh_mod.all_gather_dim(logits, par.mesh, par.tp, 1)
+    if logits.shape[1] != cfg.vocab_size:                   # mask vocab pad
         logits[:, cfg.vocab_size:] = L.MASKED
     state["pos"] = pos + s_new
     return logits, state
@@ -613,10 +704,13 @@ def forward_step(cfg: ModelConfig, model: LM, tokens: torch.Tensor,
 def fill_cross_caches(cfg: ModelConfig, model: LM, state: State,
                       enc_out: torch.Tensor) -> State:
     """Write every decoder layer's encoder K/V at slots [0, S_src) of its
-    cross cache (in place)."""
-    for cr, ck in zip(model.cross, state["cross"]):
-        k, v = _cross_kv(cr, enc_out)
-        L.update_cache(ck["k"], k, 0)
-        L.update_cache(ck["v"], v, 0)
+    cross cache (in place; on a mesh the part that lands in the rank's
+    slots)."""
+    lay = state.get("layout")
+    slot0, limit = (0, None) if lay is None else (lay.slot0, lay.cache_len)
+    for i, (cr, ck) in enumerate(zip(model.cross, state["cross"])):
+        with _gathered(model, [f"cross.{i}"]):
+            k, v = _cross_kv(cr, enc_out)
+        L.update_cache(ck["k"], k, 0, slot0, limit)
+        L.update_cache(ck["v"], v, 0, slot0, limit)
     return state
-

@@ -119,20 +119,25 @@ def _global_positions(par, se: torch.Tensor, pos: torch.Tensor, e: int
     """Each sorted assignment's position in its expert's run over the
     global batch: the data ranks before this one (in batch order) hold
     the first tokens, so their counts of each expert come first."""
-    counts = torch.bincount(se, minlength=e)[None]            # (1, E)
+    counts = torch.zeros((1, e), dtype=torch.long, device=se.device
+                         ).scatter_add_(1, se[None], torch.ones_like(se)[None])
     every = mesh_mod.all_gather_dim(counts, par.mesh, par.dp, 0)
     me = mesh_mod.linear_index(par.mesh, par.dp)
     return pos + every[:me].sum(dim=0)[se]
 
 
 def moe_apply(p: Moe, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25) -> Tuple[torch.Tensor, Routing]:
+              capacity_factor: float = 1.25, par=None
+              ) -> Tuple[torch.Tensor, Routing]:
     """x (B, S, D) -> (B, S, D) and its routing (the reference's aux
-    losses are ``moe_aux(routing)``).  Static shapes throughout."""
+    losses are ``moe_aux(routing)``).  Static shapes throughout.  ``par``
+    overrides the layer's own mesh context: a decode step whose batch is
+    not split over the data axes passes one whose ``dp`` is empty, so the
+    capacity counts its tokens once."""
     b, s, d = x.shape
     n = b * s
     e = p.router.shape[1]
-    par = p.par
+    par = p.par if par is None else par
     n_dp = 1 if par is None else mesh_mod.axis_size(par.mesh, par.dp)
     c = capacity(n * n_dp, e, top_k, capacity_factor)
     dev = x.device

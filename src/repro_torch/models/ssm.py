@@ -23,7 +23,9 @@ forward is tensor-parallel over "model": ``w_z``, ``w_x``, ``conv_x``,
 hold this rank's SSD heads; ``w_b``, ``w_c``, ``w_dt`` and the B/C conv
 are replicated and computed whole, then narrowed to the rank's heads;
 ``w_out`` is row-parallel and summed over "model", and the gated norm's
-sum of squares over d_inner is summed over "model" too.
+sum of squares over d_inner is summed over "model" too.  The decode step
+(:func:`ssm_decode_step`) cuts its state the same way: the rank's heads
+of ``ssm`` and ``conv_x``, ``conv_bc`` whole.
 """
 from __future__ import annotations
 
@@ -243,12 +245,19 @@ def ssm_forward(p: Mamba2, x: torch.Tensor, *, chunk: int,
 
 def ssm_decode_step(p: Mamba2, x: torch.Tensor, state: SsmState
                     ) -> Tuple[torch.Tensor, SsmState]:
-    """O(1) single-token recurrence.  x (B, 1, D)."""
+    """O(1) single-token recurrence.  x (B, 1, D).  On a mesh the state
+    holds this rank's heads (``ssm``, ``conv_x``) and the B/C lookback
+    whole, as :func:`ssm_forward` computes them."""
     n_state = p.n_state
-    z = x @ p.w_z
-    xr = x @ p.w_x
+    par = p.par
+    xt = x if par is None else par.to_tp(x)
+    z = xt @ p.w_z
+    xr = xt @ p.w_x
     bc = torch.cat([x @ p.w_b, x @ p.w_c], dim=-1)
     dt_raw = x @ p.w_dt
+    if par is not None and par.tp is not None:
+        start, hl = par.tp_block(dt_raw.shape[-1])
+        dt_raw = dt_raw[..., start:start + hl]
     width = p.conv_x.shape[0]
 
     def one_step_conv(xin, lb, w, bias):

@@ -2,7 +2,11 @@
 
 * ``make_train_step``   — forward + loss + backward + AdamW/Adafactor;
 * ``make_prefill_step`` — prompt → filled caches + first-token logits;
-* ``make_decode_step``  — one token against the cache (+ SSM states).
+* ``make_decode_step``  — one token against the cache (+ SSM states);
+* ``make_batch_specs``, ``make_decode_specs``, ``param_specs``,
+  ``train_state_specs`` — their inputs as tensors on the ``meta`` device
+  (shapes and dtypes, nothing allocated), whole or one rank's blocks,
+  which ``launch/dryrun.py`` runs the steps on.
 
 Plain callables on the model's device.  A train state is ``{"model": LM,
 "opt": AdamWState | AdafactorState, "step": int}``; the step updates the
@@ -173,23 +177,34 @@ def make_train_step(cfg: ModelConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, cache_len: int, tp: int = 1
+def make_prefill_step(cfg: ModelConfig, cache_len: int, tp: int = 1,
+                      mesh=None, policy: Optional[sh.ShardingPolicy] = None
                       ) -> Callable:
     """``prefill(model, batch) -> (logits (B, V), decode_state)``; ``batch``
     holds ``tokens`` (B, S) and, by family, ``patch_embeds`` (vlm) or
-    ``src_embeds`` (encoder-decoder)."""
+    ``src_embeds`` (encoder-decoder).
+
+    With a ``mesh`` the model is a rank's blocks (``init_params(mesh=)``),
+    ``batch`` the whole batch on every rank, and the step takes the rank's
+    rows of it (``sharding.decode_layout``): it returns their logits and
+    the rank's blocks of the decode state, cut under ``policy`` as they
+    are allocated."""
 
     @torch.inference_mode()
     def prefill(model: model_mod.LM, batch: Dict[str, torch.Tensor]):
         tokens = batch["tokens"]
         state = model_mod.init_decode_state(cfg, tokens.shape[0], cache_len,
-                                            tp=tp, device=tokens.device)
+                                            tp=tp, device=tokens.device,
+                                            mesh=mesh, policy=policy)
+        lay = state.get("layout")
+        if lay is not None:
+            batch = {k: lay.rows(v) for k, v in batch.items()}
         prefix = batch.get("patch_embeds") if cfg.frontend == "vision" \
             else None
         if cfg.encoder_layers:
             enc_out = model_mod.encode(cfg, model, batch["src_embeds"])
             state = model_mod.fill_cross_caches(cfg, model, state, enc_out)
-        return model_mod.forward_step(cfg, model, tokens, state,
+        return model_mod.forward_step(cfg, model, batch["tokens"], state,
                                       prefix_embeds=prefix)
 
     return prefill
@@ -197,10 +212,79 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int, tp: int = 1
 
 def make_decode_step(cfg: ModelConfig) -> Callable:
     """``decode(model, token (B, 1), state) -> (logits, state)``: one new
-    token against the existing KV/SSM caches, written in place."""
+    token against the existing KV/SSM caches, written in place.  On a
+    mesh ``token`` holds the rank's rows (those of its prefill's
+    logits); the state says how it is cut."""
 
     @torch.inference_mode()
     def decode(model: model_mod.LM, token: torch.Tensor, state):
         return model_mod.forward_step(cfg, model, token, state)
 
     return decode
+
+
+# ======================================================== meta stand-ins
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def make_batch_specs(cfg: ModelConfig, global_batch: int, seq_len: int,
+                     mesh=None) -> Dict[str, torch.Tensor]:
+    """A training/prefill batch of one shape cell as ``meta`` tensors, in
+    the reference's dtypes (int32 tokens and labels, an f32 loss mask);
+    with a ``mesh`` this rank's rows (``sharding.batch_pspecs``)."""
+    prefix = cfg.num_prefix if cfg.frontend == "vision" else 0
+    text = (global_batch, seq_len - prefix)
+    out = {"tokens": _meta(text, torch.int32),
+           "labels": _meta(text, torch.int32),
+           "loss_mask": _meta(text, torch.float32)}
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = _meta((global_batch, cfg.num_prefix,
+                                     cfg.d_model), cfg.pdtype)
+    if cfg.encoder_layers:
+        out["src_embeds"] = _meta((global_batch, seq_len, cfg.d_model),
+                                  cfg.pdtype)
+    if mesh is not None:
+        specs = sh.batch_pspecs(out, mesh)
+        out = {k: sh.local_shard(v, specs[k], mesh) for k, v in out.items()}
+    return out
+
+
+def make_decode_specs(cfg: ModelConfig, global_batch: int, cache_len: int,
+                      tp: int = 1, mesh=None,
+                      policy: Optional[sh.ShardingPolicy] = None):
+    """(the token (B, 1) int32, the decode state) of one decode cell as
+    ``meta`` tensors; with a ``mesh`` this rank's rows and blocks
+    (``init_decode_state(mesh=)``)."""
+    token = _meta((global_batch, 1), torch.int32)
+    state = model_mod.init_decode_state(cfg, global_batch, cache_len, tp=tp,
+                                        device="meta", mesh=mesh,
+                                        policy=policy)
+    if mesh is not None:
+        token = state["layout"].rows(token)
+    return token, state
+
+
+def param_specs(cfg: ModelConfig, tp: int = 1, mesh=None,
+                policy: Optional[sh.ShardingPolicy] = None
+                ) -> model_mod.LM:
+    """The model's parameters on ``meta`` (nothing drawn); with a
+    ``mesh`` cut to this rank's blocks under ``policy``, heads and
+    vocabulary padded by its "model" size."""
+    if mesh is not None:
+        from repro_torch.launch.mesh import tp_size
+        tp = max(tp, tp_size(mesh))
+    model = model_mod.LM(cfg, tp, device="meta")
+    if mesh is not None:
+        sh.shard_model(model, mesh, policy or sh.ShardingPolicy())
+    return model
+
+
+def train_state_specs(cfg: ModelConfig, tcfg: TrainStepConfig, tp: int = 1,
+                      mesh=None, policy: Optional[sh.ShardingPolicy] = None
+                      ) -> TrainState:
+    """:func:`init_train_state`'s state on ``meta``: the model (with
+    gradients on), the optimizer's zero state, step 0."""
+    model = param_specs(cfg, tp, mesh, policy).requires_grad_(True)
+    return {"model": model, "opt": init_optimizer(cfg, tcfg, model),
+            "step": 0}

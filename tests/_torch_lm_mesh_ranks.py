@@ -1,5 +1,6 @@
-"""One rank of the LM stack's mesh tier, for tests/test_torch_lm_mesh.py
-(CPU ranks, gloo) and tests/test_torch_cuda_lm_mesh.py (card ranks).
+"""One rank of the LM stack's mesh tier, for tests/test_torch_lm_mesh.py,
+tests/test_torch_lm_serve_mesh.py, tests/test_torch_dryrun.py (CPU
+ranks, gloo) and tests/test_torch_cuda_lm_mesh.py (card ranks).
 Imports no jax: the card machine has none.
 
     python tests/_torch_lm_mesh_ranks.py JOB RANK WORLD INIT_METHOD IN OUT
@@ -265,8 +266,118 @@ def ckpt_case(rk: Ranks, case: dict, inp: dict, pre: str) -> dict:
     return out
 
 
+class Largest:
+    """Context: the bytes of the largest tensor any op returns while it is
+    open (a dispatch mode; views count as their own size)."""
+
+    def __enter__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+        outer = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for t in tree_leaves(out):
+                    if isinstance(t, torch.Tensor):
+                        outer.most = max(outer.most,
+                                         t.numel() * t.element_size())
+                return out
+        self.most = 0
+        self.mode = _Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def serve_case(rk: Ranks, case: dict, inp: dict, pre: str) -> dict:
+    """Sharded prefill of the whole batch (``make_prefill_step(mesh=)``)
+    and one decode step a column of ``teacher`` (B, steps): each step's
+    logits (the rank's rows), the MoE layers' dropped share of each
+    decode step, the rank's cache blocks after the last step, the largest
+    tensor the rank allocated, and whether a decode past the cache's end
+    raised (``case["overflow"]``)."""
+    import torch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import tp_size
+    from repro_torch.models import model as model_mod
+    from repro_torch.train import steps
+
+    cfg = case_config(case)
+    mesh = rk.mesh(case["shape"], case["names"])
+    dev = torch.device(rk.device)
+    w = case.get("weights", pre)
+    model = model_mod.LM(cfg, tp_size(mesh), device=dev)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(torch.from_numpy(inp[f"{w}/w/{n}"]))
+    sh.shard_model(model, mesh, sh.ShardingPolicy())
+    keys = [k[len(pre) + 3:] for k in inp if k.startswith(f"{pre}/b/")]
+    batch = {k: torch.from_numpy(inp[f"{pre}/b/{k}"]).to(dev) for k in keys}
+    teacher = torch.from_numpy(inp[f"{pre}/teacher"]).to(dev)
+    prefill = steps.make_prefill_step(cfg, case["cache_len"], mesh=mesh)
+    out = {}
+    with Largest() as big:
+        logits, state = prefill(model, batch)
+        out["l0"] = _np(logits)
+        lay = state["layout"]
+        for i in range(teacher.shape[1]):
+            aux = {k: torch.zeros((), device=dev)
+                   for k in ("lb_loss", "z_loss", "dropped")}
+            with torch.inference_mode():
+                logits, state = model_mod.forward_step(
+                    cfg, model, lay.rows(teacher[:, i])[:, None], state,
+                    aux=aux)
+            out[f"l{i + 1}"] = _np(logits)
+            out[f"drop{i + 1}"] = np.float64(float(aux["dropped"]))
+    out["largest"] = np.int64(big.most)
+    out["pos"] = np.int64(state["pos"])
+    for group in ("layers", "cross"):
+        for i, c in enumerate(state.get(group, ())):
+            for k, t in c.items():
+                out[f"c/{group}/{i}/{k}"] = _np(t)
+    if case.get("overflow"):
+        try:
+            model_mod.forward_step(cfg, model,
+                                   lay.rows(teacher[:, -1])[:, None], state)
+            out["raised"] = np.int64(0)
+        except ValueError:
+            out["raised"] = np.int64(1)
+    return out
+
+
+def count_case(rk: Ranks, case: dict, inp: dict, pre: str) -> dict:
+    """One decode step of ``case`` after its prefill, under
+    ``core.mesh.count_collectives``: each call's kind, axes, bytes and
+    whether it crosses a host, in order."""
+    import torch
+    from repro_torch.core import mesh as mesh_mod
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import tp_size
+    from repro_torch.models import model as model_mod
+    from repro_torch.train import steps
+
+    cfg = case_config(case)
+    mesh = rk.mesh(case["shape"], case["names"])
+    model = model_mod.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu", mesh=mesh)
+    b, s = case["batch"], case["prompt"]
+    tokens = torch.arange(b * s).reshape(b, s) % cfg.vocab_size
+    prefill = steps.make_prefill_step(cfg, case["cache_len"], mesh=mesh)
+    logits, state = prefill(model, {"tokens": tokens})
+    token = torch.argmax(logits, -1)[:, None]
+    with mesh_mod.count_collectives() as counter:
+        steps.make_decode_step(cfg)(model, token, state)
+    return {"calls": np.array(json.dumps(counter.calls)),
+            "tp": np.int64(tp_size(mesh))}
+
+
 KINDS = {"train": train_case, "draw": draw_case, "moe": moe_case,
-         "sketch": sketch_case, "ckpt": ckpt_case}
+         "sketch": sketch_case, "ckpt": ckpt_case, "serve": serve_case,
+         "count": count_case}
 
 
 def cases(rank: int, world: int, init: str, inp: dict) -> dict:

@@ -150,14 +150,14 @@ def ref_leaves(pc, tree, model) -> dict:
             for n, p in model.named_parameters()}
 
 
-def ref_params_from_port(rc, pc, model):
+def ref_params_from_port(rc, pc, model, tp: int = 1):
     """The reference's ``init_params`` pytree (its structure from
-    ``jax.eval_shape``) holding the port model's weights: drawing with
-    torch and carrying them over costs a fraction of the reference's own
-    eager draw."""
+    ``jax.eval_shape``, heads and vocabulary padded for ``tp``) holding
+    the port model's weights: drawing with torch and carrying them over
+    costs a fraction of the reference's own eager draw."""
     from repro_torch.carry import ref_leaf
     shapes = jax.eval_shape(lambda: ref_model.init_params(jax.random.key(0),
-                                                          rc))
+                                                          rc, tp=tp))
     tree = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
     for name, p in model.named_parameters():
         view = ref_leaf(pc, tree, name, p.shape)

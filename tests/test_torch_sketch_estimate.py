@@ -107,6 +107,24 @@ def test_implicit_keys_match_reference_across_chunks(rows, monkeypatch):
     assert bool((out[:start] == 7.0).all())
 
 
+def test_wide_tables_match_reference():
+    """R 300, past the rows the kernel's shared-memory paths hold (the
+    card takes a warp a query there): the wrapper accepts it, and its
+    plain twin equals the reference's ``sketch.estimate`` by int32 view."""
+    ref, sk = _sketches(300, 300)
+    hi, lo = _keys(301, 500)
+    thi, tlo = u64.from_numpy(hi), u64.from_numpy(lo)
+    want = np.asarray(ref_sketch.estimate(ref, jnp.asarray(hi),
+                                          jnp.asarray(lo)))
+    assert k8.MAX_ROWS < 300
+    _same_bits(want, k8.estimate(sk.table, sk.params, thi, tlo), "estimate")
+    _same_bits(want, sketch.estimate(sk, thi, tlo), "sketch.estimate")
+    out = torch.full((500,), 7.0)
+    k8.estimate_range(sk.table, sk.params, 11, out)
+    _same_bits(np.asarray(ref_sketch.tensor_sketch_estimate(ref, 511))[11:],
+               out, "estimate_range")
+
+
 def test_plain_versions_refuse_what_the_kernel_refuses():
     _, sk = _sketches(3, 0)
     with pytest.raises(ValueError, match="2\\^32"):
