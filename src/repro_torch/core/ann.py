@@ -51,14 +51,15 @@ single-device graph bit for bit, indices and distances.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core import coo
 from repro_torch.core import mesh as mesh_mod
+from repro_torch.core import spans
 from repro_torch.core.candidates import smallest_k
 from repro_torch.kernels import knn_tile
 
@@ -123,11 +124,6 @@ class AnnDraws(NamedTuple):
 def _check_tile(cfg: AnnConfig) -> None:
     if cfg.tile not in ("pallas", "xla"):
         raise ValueError(f"unknown distance tile backend: {cfg.tile!r}")
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _bucket_size(cfg: AnnConfig, k: int) -> int:
@@ -424,32 +420,26 @@ def _ann_build(x: torch.Tensor, k: int, cfg: AnnConfig, draws: AnnDraws,
     n, d = x.shape
     dev = x.device
     x = x.to(torch.float32)
-    t0 = time.perf_counter()
-    rots = draws.rotations if draws.rotations is not None else \
-        _rotations(cfg.seed, cfg.probes, d)
-    probes = []
-    for p in range(cfg.probes):
-        lay = _probe_layout(x, k, rots[p], cfg)
-        ti, td = _tiles_topk(*lay[:4], k)
-        inv = lay[4][:n]
-        probes.append((ti[inv], td[inv]))
-        del lay, ti, td
-    idx, d2 = _merge_probes(probes, k)
-    del probes
-    if stats is not None:
-        _sync(dev)
-        stats["stage1_s"] = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    bl = min(cfg.block, n)
-    r_total = -(-n // bl) * bl
-    ar = torch.arange(r_total, device=dev)
-    rid = torch.where(ar < n, ar, -1)
-    idx = torch.cat([idx, idx.new_full((r_total - n, k), -1)])
-    d2 = torch.cat([d2, d2.new_full((r_total - n, k), float("inf"))])
-    idx, d2 = _nn_descent(x, idx, d2, rid, k, n, cfg, bl, draws, stats)
-    if stats is not None:
-        _sync(dev)
-        stats["descent_s"] = time.perf_counter() - t1
+    with spans.span("probes"):
+        rots = draws.rotations if draws.rotations is not None else \
+            _rotations(cfg.seed, cfg.probes, d)
+        probes = []
+        for p in range(cfg.probes):
+            lay = _probe_layout(x, k, rots[p], cfg)
+            ti, td = _tiles_topk(*lay[:4], k)
+            inv = lay[4][:n]
+            probes.append((ti[inv], td[inv]))
+            del lay, ti, td
+        idx, d2 = _merge_probes(probes, k)
+        del probes
+    with spans.span("descent"):
+        bl = min(cfg.block, n)
+        r_total = -(-n // bl) * bl
+        ar = torch.arange(r_total, device=dev)
+        rid = torch.where(ar < n, ar, -1)
+        idx = torch.cat([idx, idx.new_full((r_total - n, k), -1)])
+        d2 = torch.cat([d2, d2.new_full((r_total - n, k), float("inf"))])
+        idx, d2 = _nn_descent(x, idx, d2, rid, k, n, cfg, bl, draws, stats)
     return idx[:n], d2[:n]
 
 
@@ -489,47 +479,41 @@ def _ann_build_mesh(x: torch.Tensor, k: int, cfg: AnnConfig,
     n, d = x.shape
     dev = x.device
     x = x.to(torch.float32)
-    t0 = time.perf_counter()
-    rots = draws.rotations if draws.rotations is not None else \
-        _rotations(cfg.seed, cfg.probes, d)
-    probes = []
-    for p in range(cfg.probes):
-        lay = _probe_layout(x, k, rots[p], cfg)
-        tp = -(-lay[0].shape[0] // ns)                       # tiles a rank
-        part = [_tile_slice(a, s * tp, tp, fill)
-                for a, fill in zip(lay[:4], (0.0, -1, 0.0, -1))]
-        ti, td = _tiles_topk(*part, k)
-        del part
-        whole = mesh_mod.all_gather(_wire(ti, td), mesh, axis)
-        probes.append(_unwire(whole[lay[4][:n]], k))
-        del lay, ti, td, whole
-    idx, d2 = _merge_probes(probes, k)
-    del probes
-    if stats is not None:
-        _sync(dev)
-        stats["stage1_s"] = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    rows_per, _ = mesh_mod.row_block(n, ns)
-    bl = min(cfg.block, rows_per)
-    rpp = -(-rows_per // bl) * bl
-    slot = torch.arange(ns * rpp, device=dev)
-    gid = (slot // rpp) * rows_per + slot % rpp
-    rid_full = torch.where((slot % rpp < rows_per) & (gid < n), gid, -1)
-    rid = rid_full[s * rpp:(s + 1) * rpp]
-    live = rid[:, None] >= 0
-    safe = rid.clamp(min=0)
-    idx_l = torch.where(live, idx[safe], -1)
-    d2_l = torch.where(live, d2[safe], float("inf"))
-    del idx, d2
-    idx_l, d2_l = _nn_descent(x, idx_l, d2_l, rid, k, n, cfg, bl, draws,
-                              stats, mesh=mesh, rid_full=rid_full,
-                              rows_per=rows_per, rpp=rpp)
-    whole = mesh_mod.all_gather(_wire(idx_l, d2_l), mesh, axis)
-    idx, d2 = _unwire(whole[_layout_pos(torch.arange(n, device=dev),
-                                        rows_per, rpp)], k)
-    if stats is not None:
-        _sync(dev)
-        stats["descent_s"] = time.perf_counter() - t1
+    with spans.span("probes"):
+        rots = draws.rotations if draws.rotations is not None else \
+            _rotations(cfg.seed, cfg.probes, d)
+        probes = []
+        for p in range(cfg.probes):
+            lay = _probe_layout(x, k, rots[p], cfg)
+            tp = -(-lay[0].shape[0] // ns)                   # tiles a rank
+            part = [_tile_slice(a, s * tp, tp, fill)
+                    for a, fill in zip(lay[:4], (0.0, -1, 0.0, -1))]
+            ti, td = _tiles_topk(*part, k)
+            del part
+            whole = mesh_mod.all_gather(_wire(ti, td), mesh, axis)
+            probes.append(_unwire(whole[lay[4][:n]], k))
+            del lay, ti, td, whole
+        idx, d2 = _merge_probes(probes, k)
+        del probes
+    with spans.span("descent"):
+        rows_per, _ = mesh_mod.row_block(n, ns)
+        bl = min(cfg.block, rows_per)
+        rpp = -(-rows_per // bl) * bl
+        slot = torch.arange(ns * rpp, device=dev)
+        gid = (slot // rpp) * rows_per + slot % rpp
+        rid_full = torch.where((slot % rpp < rows_per) & (gid < n), gid, -1)
+        rid = rid_full[s * rpp:(s + 1) * rpp]
+        live = rid[:, None] >= 0
+        safe = rid.clamp(min=0)
+        idx_l = torch.where(live, idx[safe], -1)
+        d2_l = torch.where(live, d2[safe], float("inf"))
+        del idx, d2
+        idx_l, d2_l = _nn_descent(x, idx_l, d2_l, rid, k, n, cfg, bl, draws,
+                                  stats, mesh=mesh, rid_full=rid_full,
+                                  rows_per=rows_per, rpp=rpp)
+        whole = mesh_mod.all_gather(_wire(idx_l, d2_l), mesh, axis)
+        idx, d2 = _unwire(whole[_layout_pos(torch.arange(n, device=dev),
+                                            rows_per, rpp)], k)
     return idx, d2
 
 
@@ -540,22 +524,33 @@ def ann_knn_graph(x: torch.Tensor, k: int, cfg: Optional[AnnConfig] = None,
     """Approximate kNN graph excluding self: (indices (N,k) int64,
     euclidean dists (N,k) ascending), the drop-in for the exact
     ``neighbors.knn_graph``.  Recall ≥ 0.9 against exact on blob data at
-    the default config.  ``draws`` replaces the port's own draws;
-    ``stats`` (a dict) receives the stage seconds (``stage1_s``,
-    ``descent_s``, each ending in a device synchronize) and the rounds
-    run (``descent_iters``, ``descent_changed``).  ``mesh`` (``None`` |
-    rank count | 1-D ``DeviceMesh``) shards the build over its ranks
-    (every rank passes the same ``x`` and gets the whole graph, equal to
-    the single-device graph bit for bit)."""
+    the default config.  ``draws`` replaces the port's own draws.  The
+    two stages are the spans "probes" and "descent" (``core.spans``).
+    ``stats`` (a dict) receives their seconds (``stage1_s``,
+    ``descent_s``: the device's on CUDA, else the host's) and the rounds
+    run (``descent_iters``, ``descent_changed``); with it the build opens
+    a span scope of its own and synchronizes once at its end.  ``mesh``
+    (``None`` | rank count | 1-D ``DeviceMesh``) shards the build over
+    its ranks (every rank passes the same ``x`` and gets the whole graph,
+    equal to the single-device graph bit for bit)."""
     cfg = cfg if cfg is not None else AnnConfig()
     _check_tile(cfg)
     n = x.shape[0]
     k = min(int(k), max(n - 1, 1))
     mesh = mesh_mod.resolve_mesh(mesh)
-    if mesh is not None:
-        idx, d2 = _ann_build_mesh(x, k, cfg, draws or AnnDraws(), mesh, stats)
-    else:
-        idx, d2 = _ann_build(x, k, cfg, draws or AnnDraws(), stats)
+    with spans.scope(x.device) if stats is not None \
+            else contextlib.nullcontext() as sc:
+        if mesh is not None:
+            idx, d2 = _ann_build_mesh(x, k, cfg, draws or AnnDraws(), mesh,
+                                      stats)
+        else:
+            idx, d2 = _ann_build(x, k, cfg, draws or AnnDraws(), stats)
+    if sc is not None:
+        if x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+        sec = sc.seconds()
+        for key, path in (("stage1_s", "probes"), ("descent_s", "descent")):
+            stats[key] = sec.get(path + "@device", sec[path])
     return idx, d2.clamp_(min=0.0).sqrt_()
 
 

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core import ann as ann_mod
 from repro_torch.core import mesh as mesh_mod
+from repro_torch.core import spans
 from repro_torch.core.candidates import smallest_k
 from repro_torch.core.tsne import pairwise_sq_dists
 
@@ -64,6 +65,7 @@ def _use_ann(method: str, n: int, ann) -> Optional[ann_mod.AnnConfig]:
     return cfg if method == "ann" or n > cfg.auto_threshold else None
 
 
+@spans.spanned("knn")
 def knn_graph(x: torch.Tensor, k: int, *, block: Optional[int] = None,
               mesh=None, method: str = "exact", ann=None,
               ann_draws: Optional[ann_mod.AnnDraws] = None

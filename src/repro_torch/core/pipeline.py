@@ -41,7 +41,6 @@ the whole embedding.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -53,6 +52,7 @@ from repro_torch.core import geo, hashing, prng, quantize, replicas
 from repro_torch.core import mesh as mesh_mod
 from repro_torch.core import heavy_hitters as hh_mod
 from repro_torch.core import sketch as sketch_mod
+from repro_torch.core import spans
 from repro_torch.core import stream as stream_mod
 from repro_torch.core import tsne as tsne_mod
 from repro_torch.core import u64
@@ -175,7 +175,9 @@ class SnsResult:
     # largest exact count withheld from the candidate set (local top-L
     # truncation); 0.0 = the candidates hold every occupied cell
     hh_error_bound: float = 0.0
-    # host seconds per stage, each ending in a device synchronize
+    # the map's spans (core.spans): host seconds by dotted path, the
+    # stages ("sketch", "replicas", "embed", ...) each ending in a device
+    # synchronize, and on CUDA "<path>@device", the device's seconds
     stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     # tSNE's per-iteration KL on the device (None for UMAP); the
     # reference's embed_points returns it, its run drops it
@@ -285,17 +287,25 @@ def _sketch_stage_impl(cfg: SnsConfig, points, grid: Optional[GridSpec],
                                   hash_params)
         return grid, res.hh, float(res.evict_max)
     if grid is None:
-        grid = quantize.fit_grid(pts, cfg.bins)
+        with spans.span("grid"):
+            grid = quantize.fit_grid(pts, cfg.bins)
     # one sort + RLE feeds the sketch scatter and the candidate top-k
-    key_hi, key_lo = quantize.points_to_keys(grid, pts)
-    sk = sketch_mod.init(_hash_params(cfg, dev, hash_params), cfg.log2_cols)
-    runs = cand_mod.sorted_runs(
-        key_hi, key_lo, assume_hi_zero=grid.dims * grid.bits_per_dim <= 32)
+    with spans.span("keys"):
+        key_hi, key_lo = quantize.points_to_keys(grid, pts)
+    with spans.span("sort"):
+        runs = cand_mod.sorted_runs(
+            key_hi, key_lo, assume_hi_zero=grid.dims * grid.bits_per_dim <= 32)
     del key_hi, key_lo
-    sk = sketch_mod.update_runs(sk, runs)
+    with spans.span("update"):
+        sk = sketch_mod.init(_hash_params(cfg, dev, hash_params),
+                             cfg.log2_cols)
+        sk = sketch_mod.update_runs(sk, runs)
     pool = cfg.candidate_pool or min(2 * cfg.top_k, pts.shape[0])
-    cands, dropped = cand_mod.topk_from_runs(runs, pool, return_dropped=True)
-    hh = hh_mod.from_candidates(sk, cands, cfg.top_k)
+    with spans.span("candidates"):
+        cands, dropped = cand_mod.topk_from_runs(runs, pool,
+                                                 return_dropped=True)
+    with spans.span("estimate"):
+        hh = hh_mod.from_candidates(sk, cands, cfg.top_k)
     return grid, hh, float(dropped)
 
 
@@ -318,37 +328,34 @@ def sketch_stage_streaming(cfg: SnsConfig, chunks,
 
 def _ingest_stream(cfg: SnsConfig, chunks, grid: Optional[GridSpec],
                    dev: torch.device,
-                   hash_params: Optional[hashing.MulShiftParams],
-                   times: Optional[Dict[str, float]] = None
+                   hash_params: Optional[hashing.MulShiftParams]
                    ) -> Tuple[GridSpec, stream_mod.IngestState]:
     """The grid (a min/max pass over the host chunks when none is given)
-    and the superbatched fold of the stream on ``dev``.  Records "grid"
-    and "ingest" host seconds in ``times``, each ending in a device
-    synchronize."""
-    times = {} if times is None else times
-    t0 = time.perf_counter()
+    and the superbatched fold of the stream on ``dev``: the spans "grid"
+    and "ingest", each ending in a read back to the host."""
     if grid is None:
         if not callable(chunks) and iter(chunks) is chunks:
             raise ValueError(
                 "grid=None needs two passes over the stream, but `chunks` "
                 "is a one-shot iterator; pass a callable / sequence, or "
                 "fit the grid up front (quantize.fit_grid_streaming)")
-        grid = quantize.fit_grid_streaming(_chunk_stream(chunks), cfg.bins)
-        times["grid"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pool = cfg.candidate_pool or 2 * cfg.top_k
-    state = stream_mod.init(_hash_params(cfg, dev, hash_params),
-                            cfg.log2_cols, pool)
-    state = stream_mod.ingest_all(state, grid, _chunk_stream(chunks),
-                                  cfg.ingest_chunk,
-                                  superbatch=cfg.ingest_superbatch)
-    if float(state.count) == 0.0:
+        with spans.span("grid"):
+            grid = quantize.fit_grid_streaming(_chunk_stream(chunks),
+                                               cfg.bins)
+    with spans.span("ingest"):
+        pool = cfg.candidate_pool or 2 * cfg.top_k
+        state = stream_mod.init(_hash_params(cfg, dev, hash_params),
+                                cfg.log2_cols, pool)
+        state = stream_mod.ingest_all(state, grid, _chunk_stream(chunks),
+                                      cfg.ingest_chunk,
+                                      superbatch=cfg.ingest_superbatch)
+        empty = float(state.count) == 0.0
+    if empty:
         # a factory returning the SAME exhausted iterator passes the
         # re-iterable guard above but yields nothing on the ingest pass
         raise ValueError(
             "ingest pass saw no data; if `chunks` is a callable it must "
             "return a FRESH iterator on every call")
-    times["ingest"] = time.perf_counter() - t0
     return grid, state
 
 
@@ -400,43 +407,39 @@ def embed_points(cfg: SnsConfig, x: torch.Tensor, weights: torch.Tensor,
 
 def embed_stage(cfg: SnsConfig, grid: GridSpec, hh: HeavyHitters,
                 tsne_cfg=None, umap_cfg=None, *, device=None,
-                draws: Optional[Draws] = None,
-                stage_seconds: Optional[Dict[str, float]] = None
+                draws: Optional[Draws] = None
                 ) -> Tuple[Representatives, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
     """Stages 3-4: replicas + tSNE/UMAP on the live representatives."""
     reps, emb, w, ids, _ = _embed_stage_impl(
         cfg, grid, hh, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg, device=device,
-        draws=draws, stage_seconds=stage_seconds)
+        draws=draws)
     return reps, emb, w, ids
 
 
 def _embed_stage_impl(cfg: SnsConfig, grid: GridSpec, hh: HeavyHitters,
                       tsne_cfg=None, umap_cfg=None, *, device=None,
-                      draws: Optional[Draws] = None,
-                      stage_seconds: Optional[Dict[str, float]] = None):
-    """Stages 3-4 plus tSNE's KL trace (None for UMAP)."""
+                      draws: Optional[Draws] = None):
+    """Stages 3-4 plus tSNE's KL trace (None for UMAP): the spans
+    "replicas" and "embed", each ending in a device synchronize."""
     dev = resolve_device(device)
     ecfg = resolve_embed_cfg(cfg, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg)
     draws = draws or Draws()
-    times = {} if stage_seconds is None else stage_seconds
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed + 1)
-    hh = HeavyHitters(*[t.to(dev) for t in hh])
-    krep = prng.split(prng.key(cfg.seed + 1, device=dev))[0]
-    reps = replicas.make_representatives(
-        grid, hh, scheme=cfg.replica_scheme, max_replicas=cfg.max_replicas,
-        jitter_frac=cfg.jitter_frac, key=krep, jitter=draws.jitter)
-    pts, w, ids = replicas.compact(reps)
-    _sync(dev)
-    t1 = time.perf_counter()
+    with spans.span("replicas", sync=dev):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cfg.seed + 1)
+        hh = HeavyHitters(*[t.to(dev) for t in hh])
+        krep = prng.split(prng.key(cfg.seed + 1, device=dev))[0]
+        reps = replicas.make_representatives(
+            grid, hh, scheme=cfg.replica_scheme,
+            max_replicas=cfg.max_replicas, jitter_frac=cfg.jitter_frac,
+            key=krep, jitter=draws.jitter)
+        pts, w, ids = replicas.compact(reps)
     init = draws.tsne_init if cfg.embedder == "tsne" else draws.umap_init
-    emb, kl = embed_points(cfg, pts, w, ecfg, init=init, generator=gen,
-                           negatives=draws.negatives, ann_draws=draws.ann)
-    _sync(dev)
-    times["replicas"] = t1 - t0
-    times["embed"] = time.perf_counter() - t1
+    with spans.span("embed", sync=dev):
+        emb, kl = embed_points(cfg, pts, w, ecfg, init=init, generator=gen,
+                               negatives=draws.negatives,
+                               ann_draws=draws.ann)
     return reps, emb, w, ids, kl
 
 
@@ -464,27 +467,26 @@ def run(cfg: SnsConfig, points, grid: Optional[GridSpec] = None, mesh=None,
     dev = resolve_device(device)
     resolve_embed_cfg(cfg, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg)  # fail early
     draws = draws or Draws()
-    times: Dict[str, float] = {}
-    t0 = time.perf_counter()
-    pts = _points_tensor(points, dev)
-    if mesh is None:
-        grid, hh, bound = _sketch_stage_impl(cfg, pts, grid, device=dev,
-                                             hash_params=draws.hash_params)
-        total = float(pts.shape[0])
-    else:
-        grid, res = _mesh_extract(cfg, pts, grid, mesh, data_axes, dev,
-                                  draws.hash_params)
-        hh, bound, total = res.hh, float(res.evict_max), \
-            float(res.total_count)
-    _sync(dev)
-    times["sketch"] = time.perf_counter() - t0
-    reps, emb, w, ids, kl = _embed_stage_impl(
-        cfg, grid, hh, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg, device=dev,
-        draws=draws, stage_seconds=times)
+    with spans.scope(dev) as sc:
+        with spans.span("sketch", sync=dev):
+            pts = _points_tensor(points, dev)
+            if mesh is None:
+                grid, hh, bound = _sketch_stage_impl(
+                    cfg, pts, grid, device=dev,
+                    hash_params=draws.hash_params)
+                total = float(pts.shape[0])
+            else:
+                grid, res = _mesh_extract(cfg, pts, grid, mesh, data_axes,
+                                          dev, draws.hash_params)
+                hh, bound, total = res.hh, float(res.evict_max), \
+                    float(res.total_count)
+        reps, emb, w, ids, kl = _embed_stage_impl(
+            cfg, grid, hh, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg, device=dev,
+            draws=draws)
     coverage = float(hh.count.sum() / max(total, 1.0))   # a float32 ratio
     return SnsResult(grid=grid, hh=hh, reps=reps, embedding=emb,
                      rep_weight=w, rep_hh_id=ids, coverage=coverage,
-                     hh_error_bound=bound, stage_seconds=times,
+                     hh_error_bound=bound, stage_seconds=sc.seconds(),
                      kl_trace=kl)
 
 
@@ -509,7 +511,6 @@ def run_streaming(cfg: SnsConfig, chunks=None,
     dev = resolve_device(device)
     resolve_embed_cfg(cfg, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg)  # fail early
     draws = draws or Draws()
-    times: Dict[str, float] = {}
     if mesh is not None:
         if shard_fn is None:
             raise ValueError("mesh streaming needs shard_fn + num_batches")
@@ -517,35 +518,36 @@ def run_streaming(cfg: SnsConfig, chunks=None,
             raise ValueError(
                 "mesh streaming needs an agreed grid up front (the paper's "
                 "shared-hypercube contract); supply grid=")
-        t0 = time.perf_counter()
-        res = geo.geo_extract_from_shards(
-            mesh, grid, shard_fn, rows=cfg.rows, log2_cols=cfg.log2_cols,
-            top_k=cfg.top_k, candidate_pool=cfg.candidate_pool,
-            data_axes=data_axes, seed=cfg.seed, num_batches=num_batches,
-            hash_params=draws.hash_params, device=dev)
-        hh, total = res.hh, float(res.total_count)
-        bound = float(res.evict_max)     # the shards' MAX watermark
-        _sync(dev)
-        times["ingest"] = time.perf_counter() - t0
-    else:
-        if chunks is None:
-            raise ValueError("single-host streaming needs a chunk source")
-        grid, state = _ingest_stream(cfg, chunks, grid, dev,
-                                     draws.hash_params, times)
-        t0 = time.perf_counter()
-        hh = hh_mod.from_candidates(state.sketch, state.cands, cfg.top_k)
-        total = float(state.count)
-        bound = float(stream_mod.space_saving_bound(state))
-        del state
-        _sync(dev)
-        times["extract"] = time.perf_counter() - t0
-    reps, emb, w, ids, kl = _embed_stage_impl(
-        cfg, grid, hh, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg, device=dev,
-        draws=draws, stage_seconds=times)
+    elif chunks is None:
+        raise ValueError("single-host streaming needs a chunk source")
+    with spans.scope(dev) as sc:
+        if mesh is not None:
+            with spans.span("ingest", sync=dev):
+                res = geo.geo_extract_from_shards(
+                    mesh, grid, shard_fn, rows=cfg.rows,
+                    log2_cols=cfg.log2_cols, top_k=cfg.top_k,
+                    candidate_pool=cfg.candidate_pool, data_axes=data_axes,
+                    seed=cfg.seed, num_batches=num_batches,
+                    hash_params=draws.hash_params, device=dev)
+                hh, total = res.hh, float(res.total_count)
+                bound = float(res.evict_max)   # the shards' MAX watermark
+        else:
+            grid, state = _ingest_stream(cfg, chunks, grid, dev,
+                                         draws.hash_params)
+            with spans.span("extract", sync=dev):
+                hh = hh_mod.from_candidates(state.sketch, state.cands,
+                                            cfg.top_k)
+                total = float(state.count)
+                bound = float(stream_mod.space_saving_bound(state))
+                del state
+        reps, emb, w, ids, kl = _embed_stage_impl(
+            cfg, grid, hh, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg, device=dev,
+            draws=draws)
     coverage = float(hh.count.sum()) / max(total, 1.0)
     return SnsResult(grid=grid, hh=hh, reps=reps, embedding=emb,
                      rep_weight=w, rep_hh_id=ids, coverage=coverage,
-                     hh_error_bound=bound, stage_seconds=times, kl_trace=kl)
+                     hh_error_bound=bound, stage_seconds=sc.seconds(),
+                     kl_trace=kl)
 
 
 def run_resilient(cfg: SnsConfig, shard_chunks, grid: GridSpec, *,
@@ -575,24 +577,24 @@ def run_resilient(cfg: SnsConfig, shard_chunks, grid: GridSpec, *,
     dev = resolve_device(device)
     resolve_embed_cfg(cfg, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg)  # fail early
     draws = draws or Draws()
-    times: Dict[str, float] = {}
-    t0 = time.perf_counter()
-    res = geo.resilient_extract(
-        grid, shard_chunks, rows=cfg.rows, log2_cols=cfg.log2_cols,
-        top_k=cfg.top_k, candidate_pool=cfg.candidate_pool, seed=cfg.seed,
-        chunk_size=cfg.ingest_chunk, superbatch=cfg.ingest_superbatch,
-        policy=policy, deadline=deadline, min_coverage=min_coverage,
-        expected_counts=expected_counts, faults=faults, device=dev,
-        hash_params=draws.hash_params)
-    _sync(dev)
-    times["ingest"] = time.perf_counter() - t0
-    reps, emb, w, ids, kl = _embed_stage_impl(
-        cfg, grid, res.hh, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg, device=dev,
-        draws=draws, stage_seconds=times)
+    with spans.scope(dev) as sc:
+        with spans.span("ingest", sync=dev):
+            res = geo.resilient_extract(
+                grid, shard_chunks, rows=cfg.rows, log2_cols=cfg.log2_cols,
+                top_k=cfg.top_k, candidate_pool=cfg.candidate_pool,
+                seed=cfg.seed, chunk_size=cfg.ingest_chunk,
+                superbatch=cfg.ingest_superbatch, policy=policy,
+                deadline=deadline, min_coverage=min_coverage,
+                expected_counts=expected_counts, faults=faults, device=dev,
+                hash_params=draws.hash_params)
+        reps, emb, w, ids, kl = _embed_stage_impl(
+            cfg, grid, res.hh, tsne_cfg=tsne_cfg, umap_cfg=umap_cfg,
+            device=dev, draws=draws)
     coverage = float(res.hh.count.sum()) / max(res.observed_count, 1.0)
     return SnsResult(grid=grid, hh=res.hh, reps=reps, embedding=emb,
                      rep_weight=w, rep_hh_id=ids, coverage=coverage,
-                     hh_error_bound=res.hh_error_bound, stage_seconds=times,
+                     hh_error_bound=res.hh_error_bound,
+                     stage_seconds=sc.seconds(),
                      kl_trace=kl, ingest_coverage=res.coverage,
                      lost_shards=res.lost)
 

@@ -66,6 +66,7 @@ import torch
 
 from repro_torch.core import coo
 from repro_torch.core import mesh as mesh_mod
+from repro_torch.core import spans
 from repro_torch.kernels import cic
 from repro_torch.kernels import tsne_forces as fused
 
@@ -267,6 +268,7 @@ def calibrate_stats_knn(knn_dist: torch.Tensor, perplexity: float,
                       w=_point_mass(weights, n, knn_dist.device))
 
 
+@spans.spanned("affinity")
 def sparse_p_from_knn(knn_idx: torch.Tensor, knn_dist: torch.Tensor,
                       perplexity: float,
                       weights: Optional[torch.Tensor] = None,
@@ -636,6 +638,7 @@ def _span(y: torch.Tensor) -> float:
     return float((y.max(0).values - y.min(0).values).max())
 
 
+@spans.spanned("optimize")
 def _optimize(y0: torch.Tensor, grad_fn: GradFn, cfg: TsneConfig,
               adaptive: bool, update=None, span=_span
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -753,18 +756,17 @@ def run_tsne(x: torch.Tensor, cfg: TsneConfig,
         def grad_fn(y, exag, g):
             return sparse_grad(y, sp, exag, grid_size=g)
         return _optimize(y0, grad_fn, cfg, adaptive=cfg.grid_interval > 0)
-    stats = calibrate_stats(x, cfg.perplexity, weights=weights,
-                            search_iters=cfg.sigma_search_iters,
-                            block=cfg.block)
+    with spans.span("affinity"):
+        stats = calibrate_stats(x, cfg.perplexity, weights=weights,
+                                search_iters=cfg.sigma_search_iters,
+                                block=cfg.block)
+        p = p_from_stats(x, stats) if backend == "dense" else None
+        # the fused kernels' row order, once a run
+        order = fused.locality_order(x) if backend == "pallas" else None
     if backend == "dense":
-        p = p_from_stats(x, stats)
-
         def grad_fn(y, exag, g):
             return _grad_and_kl(p * exag, y)
     else:
-        # the fused kernels' row order, once a run
-        order = fused.locality_order(x) if backend == "pallas" else None
-
         def grad_fn(y, exag, g):
             return embedding_grad(x, y, stats, exag, backend=backend,
                                   block=cfg.block, order=order)

@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.core import coo
 from repro_torch.core import mesh as mesh_mod
-from repro_torch.core import neighbors
+from repro_torch.core import neighbors, spans
 from repro_torch.core.tsne import validate_init
 
 
@@ -79,6 +79,7 @@ def fit_ab(spread: float, min_dist: float) -> Tuple[float, float]:
     return float(a), float(b)
 
 
+@spans.spanned("affinity")
 def fuzzy_simplicial_set(knn_idx: torch.Tensor, knn_dist: torch.Tensor,
                          weights: Optional[torch.Tensor] = None,
                          search_iters: int = 50, symmetrize: str = "sparse"
@@ -225,33 +226,37 @@ def optimize_embedding(edges: torch.Tensor, memb: torch.Tensor, n: int,
     module docstring); every rank returns the whole (N, dims)."""
     mesh = mesh_mod.resolve_mesh(mesh)
     dev = memb.device
-    a, b = fit_ab(cfg.spread, cfg.min_dist)
-    layout, order = coo.edge_layout(edges[:, 0], edges[:, 1], n)
-    memb_n = (memb / memb.max().clamp(min=1e-12))[order]
-    e = layout.src.shape[0]
-    y, neg = _init_and_negatives(n, e, cfg, dev, init, generator, negatives)
-    if mesh is None:
+    with spans.span("layout"):
+        a, b = fit_ab(cfg.spread, cfg.min_dist)
+        layout, order = coo.edge_layout(edges[:, 0], edges[:, 1], n)
+        memb_n = (memb / memb.max().clamp(min=1e-12))[order]
+        e = layout.src.shape[0]
+        y, neg = _init_and_negatives(n, e, cfg, dev, init, generator,
+                                     negatives)
+        if mesh is not None:
+            axis = mesh_mod.mesh_axis(mesh)
+            s = mesh.get_local_rank(axis)
+            slay = coo.shard_edge_layout(layout.src.cpu().numpy(),
+                                         layout.dst.cpu().numpy(), n,
+                                         mesh_mod.axis_size(mesh, axis))
+            lay = slay.block(s, dev)
+            memb_b = coo.shard_payload(lay, memb_n)
+            rows_per = slay.rows_per_shard
+            y = torch.cat([y, y.new_zeros((slay.n_padded - n, y.shape[1]))])
+            y_blk = y[lay.row_offset:lay.row_offset + rows_per].clone()
+            del y
+    with spans.span("optimize"):
+        if mesh is None:
+            for i in range(cfg.n_epochs):
+                y = y + _alpha(cfg, i) * epoch_delta(y, layout, memb_n,
+                                                     neg(i), a, b)
+            return y
         for i in range(cfg.n_epochs):
-            y = y + _alpha(cfg, i) * epoch_delta(y, layout, memb_n, neg(i),
-                                                 a, b)
-        return y
-    axis = mesh_mod.mesh_axis(mesh)
-    s = mesh.get_local_rank(axis)
-    slay = coo.shard_edge_layout(layout.src.cpu().numpy(),
-                                 layout.dst.cpu().numpy(), n,
-                                 mesh_mod.axis_size(mesh, axis))
-    lay = slay.block(s, dev)
-    memb_b = coo.shard_payload(lay, memb_n)
-    rows_per = slay.rows_per_shard
-    y = torch.cat([y, y.new_zeros((slay.n_padded - n, y.shape[1]))])
-    y_blk = y[lay.row_offset:lay.row_offset + rows_per].clone()
-    del y
-    for i in range(cfg.n_epochs):
-        neg_b = neg(i)[lay.edge_ids]
-        y_full = mesh_mod.all_gather(y_blk, mesh, axis)
-        y_blk = y_blk + _alpha(cfg, i) * epoch_delta_shard(
-            y_full, lay, memb_b, neg_b, a, b, mesh, axis)
-    return mesh_mod.all_gather(y_blk, mesh, axis)[:n]
+            neg_b = neg(i)[lay.edge_ids]
+            y_full = mesh_mod.all_gather(y_blk, mesh, axis)
+            y_blk = y_blk + _alpha(cfg, i) * epoch_delta_shard(
+                y_full, lay, memb_b, neg_b, a, b, mesh, axis)
+        return mesh_mod.all_gather(y_blk, mesh, axis)[:n]
 
 
 def run_umap(x: torch.Tensor, cfg: UmapConfig,

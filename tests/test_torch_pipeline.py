@@ -65,7 +65,11 @@ def test_run_matches_reference_given_draws(max_replicas):
         np.abs(rp)))
     assert (got.coverage, got.hh_error_bound) == (ref.coverage,
                                                   ref.hh_error_bound)
-    assert set(got.stage_seconds) == {"sketch", "replicas", "embed"}
+    assert set(got.stage_seconds) == {
+        "sketch", "sketch.grid", "sketch.keys", "sketch.sort",
+        "sketch.update", "sketch.candidates", "sketch.estimate", "replicas",
+        "embed", "embed.knn", "embed.affinity", "embed.layout",
+        "embed.optimize"}
     emb = got.embedding.numpy()
     assert emb.shape == ref.embedding.shape and np.isfinite(emb).all()
     if max_replicas == 1:
@@ -157,8 +161,9 @@ def test_unported_paths_raise_with_their_roadmap_item():
             assert torch.equal(a, b)
         res = pipeline.run(cfg, source, device="cpu", **small)
         assert res.grid == grid and torch.equal(res.hh.key_lo, hh.key_lo)
-        assert set(res.stage_seconds) == {"grid", "ingest", "extract",
-                                          "replicas", "embed"}
+        assert set(res.stage_seconds) == {
+            "grid", "ingest", "extract", "replicas", "embed", "embed.knn",
+            "embed.affinity", "embed.layout", "embed.optimize"}
         n = int(res.reps.mask.sum())
         assert res.embedding.shape == (n, 2)
     for c, kw in [
@@ -169,6 +174,8 @@ def test_unported_paths_raise_with_their_roadmap_item():
         res = pipeline.run(c, pts, device="cpu", **kw)
         n = int(res.reps.mask.sum())
         assert n > 3 and res.embedding.shape == (n, 2)
+        assert {"embed.knn.probes", "embed.knn.descent"} <= set(
+            res.stage_seconds)
         assert bool(torch.isfinite(res.embedding).all())
 
 
@@ -294,6 +301,8 @@ def test_run_resilient_matches_reference_given_draws():
               "lost_shards"):
         assert getattr(got, f) == getattr(ref, f), f
     assert got.lost_shards == (1,) and got.ingest_coverage == 0.75
-    assert set(got.stage_seconds) == {"ingest", "replicas", "embed"}
+    assert set(got.stage_seconds) == {
+        "ingest", "replicas", "embed", "embed.knn", "embed.affinity",
+        "embed.layout", "embed.optimize"}
     np.testing.assert_allclose(got.embedding.numpy(),
                                np.asarray(ref.embedding), rtol=0, atol=1e-4)
