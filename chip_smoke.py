@@ -31,13 +31,17 @@ Phases, each failing the run (non-zero exit) if it fails:
                  ``gaussian_mixture(26_000_000, dims=8)``, the paper's 26M
                  post-cut pixels, after a small warm-up run: per-stage
                  times, #HH, #reps, coverage; asserts no NaN, K1's launch
-                 count == 2·n_epochs, K7 = K8 = 1 (the sketch stage) and
+                 count == 2·n_epochs, K9's == n_epochs, K7 = K8 = 1 (the
+                 sketch stage) and
                  blob separation of the reps labelled by their nearest
                  mixture centre (every one-shot path below asserts K7 =
                  K8 = 1 too);
 4. kernels     — K1 at the main path's shapes against the plain version,
-                 the library call and the memory bound; a profile of the
-                 UMAP epoch;
+                 the library call and the memory bound; K9 (the epoch's
+                 per-edge forces) at those shapes against its plain
+                 version in float64 (each component within 1e-5·(R +
+                 1)·memb_n), its plain version's time and its bound; a
+                 profile of the UMAP epoch;
 5. tsne-sparse — path S: ``CANCER_100K`` (sparse tSNE, exact kNN, G 128,
                  500 iterations) on the same 26M points: stage times with
                  embed split into kNN, P build and iterations, #HH, #reps,
@@ -274,7 +278,7 @@ Phases, each failing the run (non-zero exit) if it fails:
                  this phase alone.
 
 Prints the nvidia-smi name/power-limit line, then one
-``{"kernels": [...]}`` line (nine entries: K1-K4, K5a, K5b, K6-K8), then ``{"ok": true, "device": ...}`` last.
+``{"kernels": [...]}`` line (ten entries: K1-K4, K5a, K5b, K6-K9), then ``{"ok": true, "device": ...}`` last.
 Without CUDA, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
 """
@@ -1044,12 +1048,14 @@ def phase_main(device, pts, warm, spec):
     cfg = dataclasses.replace(CANCER, embed_knn_method="exact")
     n_epochs = pipeline.resolve_embed_cfg(cfg).n_epochs
     res = drive("main", cfg, pts, warm, spec, device,
-                {"segment_reduce": 2 * n_epochs, **ONE_SHOT_SKETCH})
+                {"segment_reduce": 2 * n_epochs, "umap_edge_forces": n_epochs,
+                 **ONE_SHOT_SKETCH})
     return cfg, res
 
 
 def phase_kernels(cfg, res):
-    """K1 at the main path's shapes; returns its kernels-line entry."""
+    """K1 and K9 at the main path's shapes; returns their kernels-line
+    entries."""
     import torch
     from repro_torch.core import coo, neighbors, pipeline, umap
     from repro_torch.kernels import segment_reduce as segred
@@ -1088,8 +1094,9 @@ def phase_kernels(cfg, res):
     def mean(key):
         return sum(s[key] for s in sides.values()) / len(sides)
     memb_n = (memb / memb.max().clamp(min=1e-12))[order]
+    k9 = umap_edge_forces_row(res.embedding, lay, memb_n, ecfg)
     phase_profile_umap(res.embedding.clone(), lay, memb_n, ecfg)
-    return {"name": "segment_reduce", "route": "cuda",
+    return k9, {"name": "segment_reduce", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
             "replaces": "src/repro/kernels/segment_reduce.py:49",
             "max_abs_err": max(s["max_abs_err"] for s in sides.values()),
@@ -1121,6 +1128,54 @@ def segment_reduce_row(tag, vals_int, vals, bounds, iters=100):
     log_row(tag, row, f"; {nbytes / 1e6:.2f} MB; N {n}, E {e}, D {d}, "
             f"{row['lanes']} lanes a row")
     return row
+
+
+def umap_edge_forces_row(y, lay, memb_n, ecfg, iters=100):
+    """K9 checked and timed at the main path's layout, on its final
+    embedding and one epoch's negatives: kernel, plain version (fp32, on
+    the card), bound; its kernels-line entry.  Checked against the plain
+    version in float64: each component within 1e-5·(R + 1)·memb_n[e]
+    (each of an edge's R + 1 terms is clamped to 4·memb_n[e] and carries
+    a few fp32 roundings and powf's last bits, ≲ 1e-6 of that)."""
+    import torch
+    from repro_torch.core import umap
+    from repro_torch.kernels import umap_edges as ue
+    a, b = umap.fit_ab(ecfg.spread, ecfg.min_dist)
+    (n, d), e, r = y.shape, lay.src.shape[0], ecfg.neg_rate
+    g = torch.Generator(device=y.device).manual_seed(3)
+    neg = torch.randint(0, n, (e, r), generator=g, device=y.device)
+    args = (lay.src, lay.dst, memb_n, neg, lay.dst_pos, a, b)
+    got = ue.umap_edge_forces_cuda(y, *args)
+    torch.cuda.synchronize()
+    want = ue.umap_edge_forces_torch(y.double(), lay.src, lay.dst,
+                                     memb_n.double(), neg, lay.dst_pos, a, b)
+    bar = 1e-5 * (r + 1) * memb_n.double()[:, None]
+    worst, err = 0.0, 0.0
+    for side, (k, w) in enumerate(zip(got, want)):
+        diff = (k.double() - w).abs()
+        worst = max(worst, float((diff / (bar if side == 0 else
+                                          bar[lay.dst_order])).max()))
+        err = max(err, float(diff.max()))
+    if worst > 1.0:
+        raise AssertionError(f"umap_edge_forces: {worst:.3g} x the bar "
+                             f"1e-5·(R + 1)·memb_n off the float64 plain "
+                             f"version")
+    del want
+    row = timings({"ms": lambda: ue.umap_edge_forces_cuda(y, *args),
+                   "plain_ms": lambda: ue.umap_edge_forces_torch(y, *args),
+                   "library_ms": None}, iters)
+    # inputs once (positions, three id lists, negatives, memberships),
+    # outputs once; a powf is one lg2 and one ex2 on the SFU
+    nbytes = n * d * 4 + e * (3 * 8 + r * 8 + 4) + 2 * e * d * 4
+    row["bound_ms"], row["bound_by"] = op_bound_ms(nbytes,
+                                                   sfu=2 * (r + 2) * e)
+    row["max_abs_err"] = err
+    log_row("umap_edge_forces", row, f"; {nbytes / 1e6:.2f} MB; N {n}, E "
+            f"{e}, D {d}, R {r}; worst error {worst:.3g} of the bar")
+    return {"name": "umap_edge_forces", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/umap_edges.cu",
+            "replaces": None, **row, "shapes": {"n": n, "e": e, "d": d,
+                                                "r": r}}
 
 
 def profile_steps(tag, step, iters, unit):
@@ -1816,7 +1871,7 @@ def phase_stream(device, pts, pts_np, warm, spec):
         res = drive(
             "stream", cfg, factory, warm_factory, spec, device,
             {"sketch_update_table": folded, "sketch_estimate_table": 1,
-             "segment_reduce": 2 * n_epochs})
+             "segment_reduce": 2 * n_epochs, "umap_edge_forces": n_epochs})
     state, peak = spy.calls[-1]
     st = res.stage_seconds
     log(f"[stream] {n} points as {-(-n // STREAM_SLICE)} host slices of "
@@ -1977,7 +2032,8 @@ def phase_service(device, pts, pts_np, spec):
             "V:resilient",
             lambda: {"sketch_update_table": sum(
                 calls[s] * folded[s] for s in calls),
-                "sketch_estimate_table": 1, "segment_reduce": 2 * n_epochs},
+                "sketch_estimate_table": 1, "segment_reduce": 2 * n_epochs,
+                "umap_edge_forces": n_epochs},
             lambda: pipeline.run_resilient(
                 cfg, sources(), grid, faults=faults.FaultPlan(
                     **SERVICE_FAULTS), expected_counts=expected,
@@ -2043,6 +2099,7 @@ def phase_service(device, pts, pts_np, spec):
         "seconds, slowest job's seconds): " + ", ".join(
             f"({w}, {t:.3f}, {j:.3f})" for w, t, j in turns))
     cold, wall = counted("V:cold", {"segment_reduce": 2 * n_epochs,
+                                    "umap_edge_forces": n_epochs,
                                     "sketch_estimate_table": 1},
                          lambda: svc.refresh(mode="cold"))
     log(f"[service] cold refresh {wall:.3f} s: {cold.embedding.shape[0]} "
@@ -2063,6 +2120,7 @@ def phase_service(device, pts, pts_np, spec):
                              "refresh")
     warm_iters = n_epochs // scfg.warm_factor
     warm, wall = counted("V:warm", {"segment_reduce": 2 * warm_iters,
+                                    "umap_edge_forces": warm_iters,
                                     "sketch_estimate_table": 1},
                          lambda: svc.refresh())
     log(f"[service] warm refresh {wall:.3f} s: matched {warm.n_matched}, "
@@ -2681,11 +2739,14 @@ def mesh_gates(name, world, reps, table, n, n_epochs, n_blobs, wall, smi):
     nb = [r["b"]["batches"] for r in reps]
     want = {
         "a": lambda r: {"sketch_update_table": 1, "sketch_estimate_table": 1,
-                        "segment_reduce": 2 * n_epochs},
+                        "segment_reduce": 2 * n_epochs,
+                        "umap_edge_forces": n_epochs},
         "b": lambda r: {"sketch_update_table": r["b"]["batches"],
                         "sketch_estimate_table": 1,
-                        "segment_reduce": 2 * n_epochs},
-        "c": lambda r: {"segment_reduce": 2 * n_epochs},
+                        "segment_reduce": 2 * n_epochs,
+                        "umap_edge_forces": n_epochs},
+        "c": lambda r: {"segment_reduce": 2 * n_epochs,
+                        "umap_edge_forces": n_epochs},
         "collectives": lambda r: {}, "collectives_host": lambda r: {}}
     fails = []
     for r in reps:
@@ -5180,7 +5241,7 @@ def main(argv=None) -> int:
     phase_check(device)
     pts, pts_np, warm, spec = make_points(device, args.points)
     cfg, res = phase_main(device, pts, warm, spec)
-    k1 = phase_kernels(cfg, res)
+    k9, k1 = phase_kernels(cfg, res)
     del res
     k2, k3, k1_sparse = phase_tsne_sparse(device, pts, warm, spec)
     k1["per_call"]["tsne_sparse"] = k1_sparse
@@ -5203,7 +5264,7 @@ def main(argv=None) -> int:
         k["per_call"] = dict(k.get("per_call") or {},
                              train=train_rows[k["name"]])
     log(f"[done] whole run {time.perf_counter() - t_start:.1f} s")
-    kernels = [k1, k2, k3, k4, k5a, k5b, k6, k7, k8]
+    kernels = [k1, k2, k3, k4, k5a, k5b, k6, k7, k8, k9]
     for k in kernels:
         k["launches_by_path"] = launches_by_path(k["name"])
         k["launches"] = sum(k["launches_by_path"].values())

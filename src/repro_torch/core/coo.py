@@ -7,9 +7,11 @@ the hand-written CUDA kernel for tensors on the card, the plain cumsum
 difference for tensors on the CPU.
 
 UMAP reduces over BOTH endpoints of every edge, so :func:`edge_layout`
-also builds the dst-sorted ordering and the gather permutation between
-the two orderings: the second reduction is one gather and one more
-segment reduce.
+also builds the dst-sorted ordering, the gather permutation into it
+(``dst_order``) and its inverse (``dst_pos``, each edge's slot in dst
+order): the epoch's edge kernel writes the second reduction's payload
+straight into its slots, and the second reduction is one more segment
+reduce.
 
 The sparse tSNE backend's P is canonicalised once by :func:`dedupe_edges`
 (sort by (src, dst), fold duplicate ordered pairs).
@@ -59,12 +61,15 @@ class EdgeLayout(NamedTuple):
     * ``src_bounds`` — row slices of the src-sorted order;
     * ``dst_order``/``dst_bounds`` — gather permutation into dst-sorted
       order plus its row slices:
-      ``segment_reduce(vals[dst_order], dst_bounds)``.
+      ``segment_reduce(vals[dst_order], dst_bounds)``;
+    * ``dst_pos`` — the inverse of ``dst_order``: edge e's slot in
+      dst-sorted order, where the epoch's edge kernel writes its row.
     """
     src: torch.Tensor         # (E,) int64, sorted ascending
     dst: torch.Tensor         # (E,) int64 (src-sorted edge order)
     src_bounds: torch.Tensor  # (N+1,) int32
     dst_order: torch.Tensor   # (E,) int64: edge order -> dst-sorted order
+    dst_pos: torch.Tensor     # (E,) int64: dst_order's inverse
     dst_bounds: torch.Tensor  # (N+1,) int32
 
 
@@ -76,10 +81,12 @@ def edge_layout(src: torch.Tensor, dst: torch.Tensor, n: int
     s = src[order].to(torch.int64)
     d = dst[order].to(torch.int64)
     dst_order = torch.sort(d, stable=True)[1]
+    slots = torch.arange(d.shape[0], device=d.device)
     return EdgeLayout(
         src=s, dst=d,
         src_bounds=row_bounds(s, n),
         dst_order=dst_order,
+        dst_pos=torch.empty_like(dst_order).index_copy_(0, dst_order, slots),
         dst_bounds=row_bounds(d[dst_order], n)), order
 
 
@@ -92,6 +99,8 @@ class EdgeBlock(NamedTuple):
     * ``dst_order``/``dst_bounds`` — the block's dst-sorted order and its
       GLOBAL-row slices: ``segment_reduce(vals[dst_order], dst_bounds)``
       gives a full-length (n_padded, ...) partial;
+    * ``dst_pos`` — the inverse of ``dst_order`` (each slot's place in
+      the block's dst-sorted order);
     * ``edge_ids`` — each slot's global edge index (gather per-edge draws
       by it, so every edge sees the single-device draw);
     * ``edge_mask`` — False on padded slots."""
@@ -101,6 +110,7 @@ class EdgeBlock(NamedTuple):
     edge_mask: torch.Tensor   # (Ep,) bool
     src_bounds: torch.Tensor  # (rows_per+1,) int32
     dst_order: torch.Tensor   # (Ep,) int64
+    dst_pos: torch.Tensor     # (Ep,) int64: dst_order's inverse
     dst_bounds: torch.Tensor  # (n_padded+1,) int32
     row_offset: int           # first global row of the block
 
@@ -117,6 +127,7 @@ class ShardedEdgeLayout(NamedTuple):
     edge_mask: np.ndarray     # (S, Ep) bool
     src_bounds: np.ndarray    # (S, rows_per+1) int32
     dst_order: np.ndarray     # (S, Ep) int64
+    dst_pos: np.ndarray       # (S, Ep) int64
     dst_bounds: np.ndarray    # (S, n_padded+1) int32
     row_offset: np.ndarray    # (S,) int64
 
@@ -141,6 +152,7 @@ class ShardedEdgeLayout(NamedTuple):
                          edge_mask=t(self.edge_mask),
                          src_bounds=t(self.src_bounds),
                          dst_order=t(self.dst_order),
+                         dst_pos=t(self.dst_pos),
                          dst_bounds=t(self.dst_bounds),
                          row_offset=int(self.row_offset[s]))
 
@@ -166,6 +178,7 @@ def shard_edge_layout(src, dst, n: int, n_shards: int) -> ShardedEdgeLayout:
     src_b = np.empty((n_shards, rows_per + 1), np.int32)
     dst_b = np.empty((n_shards, n_pad + 1), np.int32)
     dst_o = np.empty((n_shards, ep), np.int64)
+    dst_p = np.empty((n_shards, ep), np.int64)
     for s in range(n_shards):
         cnt = ends[s] - starts[s]
         last = max(starts[s], ends[s] - 1) if cnt else 0
@@ -176,10 +189,11 @@ def shard_edge_layout(src, dst, n: int, n_shards: int) -> ShardedEdgeLayout:
         src_b[s] = np.searchsorted(local, np.arange(rows_per + 1))
         order = np.argsort(dst[row], kind="stable")
         dst_o[s] = order
+        dst_p[s, order] = np.arange(ep)
         dst_b[s] = np.searchsorted(dst[row][order], np.arange(n_pad + 1))
     return ShardedEdgeLayout(
         src=src[ids], dst=dst[ids], edge_ids=ids, edge_mask=mask,
-        src_bounds=src_b, dst_order=dst_o, dst_bounds=dst_b,
+        src_bounds=src_b, dst_order=dst_o, dst_pos=dst_p, dst_bounds=dst_b,
         row_offset=np.arange(n_shards, dtype=np.int64) * rows_per)
 
 

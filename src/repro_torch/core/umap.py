@@ -11,9 +11,10 @@ paper's embedder and the port's first.
   attraction of every edge and ``neg_rate`` uniform repulsive samples per
   edge, as the reference (``repro.core.umap``) does.
 
-Each epoch reduces its per-edge forces into per-point deltas with two
-segment reductions over a sorted-COO layout built once
-(``coo.edge_layout``); on the card both run the hand-written kernel.
+Each epoch computes its per-edge forces in one pass (``kernels.umap_edges``)
+and reduces them into per-point deltas with two segment reductions over
+a sorted-COO layout built once (``coo.edge_layout``); on the card the
+pass is one hand-written kernel (K9) and both reductions another (K1).
 
 Random draws come from a ``torch.Generator`` (uniform init, then one
 (E, neg_rate) batch of negatives per epoch); ``init=`` and
@@ -44,6 +45,7 @@ from repro_torch.core import coo
 from repro_torch.core import mesh as mesh_mod
 from repro_torch.core import neighbors, spans
 from repro_torch.core.tsne import validate_init
+from repro_torch.kernels import umap_edges
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,42 +127,20 @@ def fuzzy_simplicial_set(knn_idx: torch.Tensor, knn_dist: torch.Tensor,
     return edges, vals + rev - vals * rev
 
 
-def _edge_forces(y: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-                 memb_n: torch.Tensor, neg: torch.Tensor, a: float, b: float
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-edge (attraction, attraction + the summed repulsion of the
-    edge's ``neg`` samples), each (E, dims), from the positions ``y``."""
-    ys, yd = y[src], y[dst]
-    diff = ys - yd
-    d2 = (diff * diff).sum(1)
-    # attractive: dCE/dy = 2ab d^{2(b-1)} / (1 + a d^{2b}) * (ys - yd)
-    grad_coef = (-2.0 * a * b * d2 ** (b - 1.0)) / (1.0 + a * d2 ** b)
-    grad_coef = torch.where(d2 > 0, grad_coef, 0.0)
-    att = (grad_coef[:, None] * diff).clamp(-4.0, 4.0) * memb_n[:, None]
-    # repulsive: samples that hit the edge's own endpoints are masked out
-    # (static shapes, umap-learn's "skip self" in expectation)
-    valid = (neg != src[:, None]) & (neg != dst[:, None])
-    ndiff = ys[:, None, :] - y[neg]                          # (E, R, dims)
-    dn2 = (ndiff * ndiff).sum(2)
-    rep_coef = (2.0 * b) / ((0.001 + dn2) * (1.0 + a * dn2 ** b))
-    rep = (rep_coef[..., None] * ndiff).clamp(-4.0, 4.0) \
-        * memb_n[:, None, None]
-    rep = torch.where(valid[..., None], rep, 0.0)
-    return att, att + rep.sum(1)
-
-
 def epoch_delta(y: torch.Tensor, layout: coo.EdgeLayout, memb_n: torch.Tensor,
                 neg: torch.Tensor, a: float, b: float) -> torch.Tensor:
-    """One epoch's per-point SGD delta.
+    """One epoch's per-point SGD delta, a new (N, dims) tensor.
 
     ``neg`` is the epoch's (E, neg_rate) int64 negative samples.
-    Attraction and repulsion are computed per edge, then reduced into
-    per-point deltas by two segment reductions: the src side carries
-    attraction + negative samples, the dst side the attraction reaction."""
-    att, src_side = _edge_forces(y, layout.src, layout.dst, memb_n, neg, a, b)
+    Attraction and repulsion are computed per edge (K9 on the card, its
+    plain twin on the CPU), then reduced into per-point deltas by two
+    segment reductions: the src side carries attraction + negative
+    samples, the dst side the attraction reaction, already in dst
+    order."""
+    src_side, att = umap_edges.umap_edge_forces(
+        y, layout.src, layout.dst, memb_n, neg, layout.dst_pos, a, b)
     return coo.segment_reduce(src_side, layout.src_bounds) \
-        - coo.segment_reduce(att[layout.dst_order].contiguous(),
-                             layout.dst_bounds)
+        - coo.segment_reduce(att, layout.dst_bounds)
 
 
 def epoch_delta_shard(y_full: torch.Tensor, lay: coo.EdgeBlock,
@@ -176,10 +156,10 @@ def epoch_delta_shard(y_full: torch.Tensor, lay: coo.EdgeBlock,
     local rows; the dst side (the attraction reaction) reduces into a
     full-length partial that crosses ranks as ONE all-reduce.  Returns
     (rows_per, dims)."""
-    att, src_side = _edge_forces(y_full, lay.src, lay.dst, memb_n, neg, a, b)
+    src_side, att = umap_edges.umap_edge_forces(
+        y_full, lay.src, lay.dst, memb_n, neg, lay.dst_pos, a, b)
     src_red = coo.segment_reduce(src_side, lay.src_bounds)
-    dst_part = coo.segment_reduce(att[lay.dst_order].contiguous(),
-                                  lay.dst_bounds)       # (n_padded, dims)
+    dst_part = coo.segment_reduce(att, lay.dst_bounds)  # (n_padded, dims)
     dst_tot = mesh_mod.all_reduce(dst_part, mesh, axis)  # THE dst exchange
     rows_per = lay.src_bounds.shape[0] - 1
     return src_red - dst_tot[lay.row_offset:lay.row_offset + rows_per]

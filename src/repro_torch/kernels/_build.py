@@ -138,12 +138,15 @@ def entry(name: str, symbol: str, argtypes: Sequence,
 def launch(op: str, fn: ctypes._CFuncPtr, device: torch.device, *args
            ) -> None:
     """Call ``fn(*args, stream)`` on ``device``'s current stream, raise if
-    it reports a CUDA error, and count one launch of ``op``."""
-    if device.index == torch.cuda.current_device():
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    it reports a CUDA error, and count one launch of ``op``.  The stream
+    is read as its raw handle: a ``torch.cuda.Stream`` object costs the
+    host microseconds a launch, which loops of short kernels pay."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
         with torch.cuda.device(device):
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
     with _COUNT_LOCK:      # shard jobs launch from several threads

@@ -49,7 +49,18 @@ Tolerances, as chip_smoke.py holds the kernels:
   with ±1 is exact; the median ranks values as the plain version's stable
   sort orders them and rounds the mean of the middle two as it does);
   explicit keys and the keys (0, start + j) into a caller's slice, R ∈
-  {1, 3, 8, 16, 40}."""
+  {1, 3, 8, 16, 40}.
+* K9 umap_edge_forces: against the plain version run in float64 on the
+  same fp32 inputs, each component within 1e-5·(R + 1)·memb_n[e]: every
+  one of an edge's R + 1 terms is clamped to 4·memb_n[e] and carries a
+  handful of fp32 roundings and powf's last-bit error (≲ 1e-6 of 4·memb
+  a term), so the bar is 2.5× that bound; at the benchmark cells' shapes
+  (2-D, E ≈ 1M; 4-D, E ≈ 313k), with coincident points and negatives
+  that hit their edge's endpoints; two calls equal (no atomics).  The
+  epoch's delta on the card within 1e-5 of max|delta| of the float64
+  CPU epoch (the check's epoch_gap bar is 1e-4); the CPU's fp32 epoch is
+  no yardstick at E ≈ 1M, its cumsum difference loses eps·|prefix sum|.
+  One ``optimize_embedding`` launches K9 once an epoch and K1 twice."""
 import ctypes
 import math
 
@@ -57,8 +68,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (ann, candidates, coo, hashing, prng, quantize,
-                              sketch, tsne)
+from repro_torch.core import (ann, candidates, coo, hashing, neighbors, prng,
+                              quantize, sketch, tsne, umap)
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import cic
 from repro_torch.kernels import hash_points as hp_mod
@@ -67,6 +78,7 @@ from repro_torch.kernels import segment_reduce as segred
 from repro_torch.kernels import sketch_estimate as se_mod
 from repro_torch.kernels import sketch_update as su_mod
 from repro_torch.kernels import tsne_forces as tf
+from repro_torch.kernels import umap_edges
 
 CASES = [(1, 16, 2), (16, 0, 2), (64, 3, 2), (33, 9, 3), (40, 5, 0),
          (0, 3, 2), (200, 40, 1), (3000, 15, 2)]
@@ -942,3 +954,134 @@ def test_sketch_kernel_wrappers_reject_bad_inputs(card):
     with pytest.raises(ValueError, match="2\\^32"):
         se_mod.estimate_range_cuda(table, params, (1 << 32) - 4, v)
     assert LAUNCHES["sketch_estimate_table"] == before
+
+
+def _umap_case(card, n, k, dims, seed, neg_rate=5):
+    """A src-sorted edge list of k edges a row over n points on the card,
+    with rows that have none, coincident points and negatives that hit
+    their edge's src or dst; (y, layout, memb_n, neg)."""
+    rng = np.random.default_rng(seed)
+    rows = np.sort(rng.choice(n, size=n - n // 10, replace=False))
+    src = np.repeat(rows, k)
+    dst = rng.integers(0, n, size=src.shape[0])
+    y = rng.uniform(-10, 10, size=(n, dims)).astype(np.float32)
+    y[1::97] = y[0]
+    dst[::101] = 0
+    neg = rng.integers(0, n, size=(src.shape[0], neg_rate))
+    neg[::3, 0] = src[::3]
+    neg[1::4, 2] = dst[1::4]
+    memb = rng.uniform(0.01, 1.0, size=src.shape[0]).astype(np.float32)
+    lay, _ = coo.edge_layout(torch.from_numpy(src).to(card),
+                             torch.from_numpy(dst).to(card), n)
+    return (torch.from_numpy(y).to(card), lay,
+            torch.from_numpy(memb).to(card), torch.from_numpy(neg).to(card))
+
+
+# the cells' shapes: cancer 2-D (E ≈ 1M), sdss 4-D (E ≈ 313k); 3-D and
+# 8-D take the kernel's generic loop
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dims", [(69_000, 2), (20_872, 4), (5_000, 3),
+                                    (3_000, 8)])
+def test_umap_edge_forces_kernel_matches_plain(card, n, dims):
+    y, lay, memb, neg = _umap_case(card, n, 15, dims, n + dims)
+    a, b = umap.fit_ab(1.0, 0.1)
+    before = LAUNCHES["umap_edge_forces"]
+    got_src, got_att = umap_edges.umap_edge_forces_cuda(
+        y, lay.src, lay.dst, memb, neg, lay.dst_pos, a, b)
+    again = umap_edges.umap_edge_forces_cuda(
+        y, lay.src, lay.dst, memb, neg, lay.dst_pos, a, b)
+    torch.cuda.synchronize()
+    assert LAUNCHES["umap_edge_forces"] == before + 2
+    assert torch.equal(got_src, again[0]) and torch.equal(got_att, again[1])
+    want_src, want_att = umap_edges.umap_edge_forces_torch(
+        y.double(), lay.src, lay.dst, memb.double(), neg, lay.dst_pos, a, b)
+    bar = 1e-5 * (neg.shape[1] + 1) * memb.double()[:, None]
+    err = (got_src.double() - want_src).abs()
+    assert bool((err <= bar).all()), err.max().item()
+    err = (got_att.double() - want_att).abs()
+    assert bool((err <= bar[lay.dst_order]).all()), err.max().item()
+    assert bool((want_src != 0).any())
+
+
+@pytest.mark.cuda
+def test_umap_edge_forces_on_mesh_blocks(card):
+    """The mesh path's input: each rank's EdgeBlock (global ids into the
+    gathered positions, padded slots of membership 0, the block's own
+    ``dst_pos``) against the plain version in float64, at the bar
+    above; padded slots give exact zeros."""
+    y, lay, memb, neg = _umap_case(card, 9_001, 15, 2, 4)
+    slay = coo.shard_edge_layout(lay.src.cpu().numpy(), lay.dst.cpu().numpy(),
+                                 9_001, 4)
+    y_full = torch.cat([y, y.new_zeros((slay.n_padded - 9_001, 2))])
+    a, b = umap.fit_ab(1.0, 0.1)
+    for s in range(slay.n_shards):
+        blk = slay.block(s, card)
+        memb_b = coo.shard_payload(blk, memb)
+        neg_b = neg[blk.edge_ids].contiguous()
+        got = umap_edges.umap_edge_forces_cuda(
+            y_full, blk.src, blk.dst, memb_b, neg_b, blk.dst_pos, a, b)
+        want = umap_edges.umap_edge_forces_torch(
+            y_full.double(), blk.src, blk.dst, memb_b.double(), neg_b,
+            blk.dst_pos, a, b)
+        bar = 1e-5 * (neg.shape[1] + 1) * memb_b.double()[:, None]
+        err = (got[0].double() - want[0]).abs()
+        assert bool((err <= bar).all()), (s, err.max().item())
+        err = (got[1].double() - want[1]).abs()
+        assert bool((err <= bar[blk.dst_order]).all()), (s, err.max().item())
+        pad = ~blk.edge_mask
+        assert bool((got[0][pad] == 0).all())
+        assert bool((got[1][blk.dst_pos[pad]] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dims", [(69_000, 2), (20_872, 4)])
+def test_umap_epoch_delta_on_card_matches_cpu(card, n, dims):
+    y, lay, memb, neg = _umap_case(card, n, 15, dims, 7 * n)
+    a, b = umap.fit_ab(1.0, 0.1)
+    got = umap.epoch_delta(y, lay, memb, neg, a, b).cpu()
+    cpu = coo.EdgeLayout(*(t.cpu() for t in lay))
+    want = umap.epoch_delta(y.cpu().double(), cpu, memb.cpu().double(),
+                            neg.cpu(), a, b)
+    err = float((got.double() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_optimize_embedding_launches_k9_once_an_epoch(card):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(2000, 5)).astype(np.float32))
+    cfg = umap.UmapConfig(n_epochs=7, n_neighbors=10)
+    idx, dist = neighbors.knn_graph(x.to(card), cfg.n_neighbors)
+    edges, memb = umap.fuzzy_simplicial_set(idx, dist)
+    LAUNCHES.clear()
+    y = umap.optimize_embedding(
+        edges, memb, x.shape[0], cfg,
+        generator=torch.Generator(device=card).manual_seed(0))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    assert LAUNCHES["umap_edge_forces"] == cfg.n_epochs
+    assert LAUNCHES["segment_reduce"] == 2 * cfg.n_epochs
+
+
+@pytest.mark.cuda
+def test_umap_edge_forces_wrapper_rejects_bad_inputs(card):
+    y, lay, memb, neg = _umap_case(card, 200, 3, 2, 1)
+    args = (lay.src, lay.dst, memb, neg, lay.dst_pos, 1.6, 0.9)
+    before = LAUNCHES["umap_edge_forces"]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        umap_edges.umap_edge_forces_cuda(y.cpu(), *args)
+    with pytest.raises(ValueError, match="int64"):
+        umap_edges.umap_edge_forces_cuda(y, lay.src, lay.dst, memb,
+                                         neg.int(), lay.dst_pos, 1.6, 0.9)
+    with pytest.raises(ValueError, match="dims must be"):
+        umap_edges.umap_edge_forces_cuda(torch.zeros(200, 9, device=card),
+                                         *args)
+    with pytest.raises(ValueError, match="float32"):
+        umap_edges.umap_edge_forces_cuda(y.double(), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        umap_edges.umap_edge_forces_cuda(
+            torch.zeros(4, 200, device=card).T, *args)
+    buf = torch.zeros(200 * 2 + 1, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        umap_edges.umap_edge_forces_cuda(buf[1:].view(200, 2), *args)
+    assert LAUNCHES["umap_edge_forces"] == before
